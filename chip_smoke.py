@@ -18,9 +18,20 @@ Phases, each printed with its seconds:
               ``EvalSweep.run_kernel``; the same lists through the plain path
               must agree by the rule of phase 3, and the kernel must have
               launched (launch counts are zeroed just before this phase);
-  5. timing   CUDA-event times of one 2048-user sweep: kernel, plain
-              version, and one library yardstick (TF32-off matmul + topk),
-              beside the least time the card could take.
+  5. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
+              first their path, driven through the tools' entry points with
+              every launch count zeroed just before and read just after
+              (``exp_retrieval_kernels.main`` at the tools' width of 2048
+              users x 270,336 items, ``exp_multiacc.check`` and one
+              ``exp_blockskip.check_exact`` regime at a small size); then
+              every variant kernel held bit for bit against its plain
+              version on integer tables at that width: dot in both layouts,
+              stream at block_i 2048 and 8192, multiacc at P = 1, 2, 4, 8,
+              skip at tile_u 64 and 256 with floors rv[0] and rv[7], and a
+              table on which skips fire (count > 0 and equal);
+  6. timing   CUDA-event times of one 2048-user sweep of every kernel: the
+              kernel, its plain version and one library yardstick, beside
+              the least time the card could take.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -46,13 +57,16 @@ from coldrec_tpu_torch.data.synthetic import synthetic_dataset
 from coldrec_tpu_torch.models.mf import MF
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda.retrieval import (
-    CANDIDATES, INIT_NEG, LANES, fused_sweep, fused_sweep_reference, pad_items,
-    retrieval_topk,
+    CANDIDATES, INIT_NEG, LANES, SLOTS, fused_sweep, fused_sweep_reference,
+    pad_items, retrieval_topk,
 )
 from coldrec_tpu_torch.runtime.checkpoints import save_embeddings
 from coldrec_tpu_torch.runtime.eval import exact_scores, masked_topk
 from coldrec_tpu_torch.runtime.serving import RetrievalServer
 from coldrec_tpu_torch.runtime.trainer import three_way_test
+from coldrec_tpu_torch.tools import exp_blockskip as ebs
+from coldrec_tpu_torch.tools import exp_multiacc as ema
+from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
 
 BUDGET_S = 600.0  # the whole run, half of the 1200 s it may take at most
 D = 64  # MF emb_size (BASELINE default)
@@ -67,6 +81,20 @@ ML_ITEMS = 3_706
 # and the reordering error stays below 64 * 2^-24 * 40 ~ 1.5e-4.
 VALUE_TOL = 1e-3
 GAP_REL = 1e-5  # rows separated by less than this may swap ids at a tie
+# The kernel-variant experiments' width (the JAX tools' default): 33 x 8192,
+# book-crossing's 270,170 items rounded up to the block.
+VAR_ITEMS = 270_336
+VAR_BLOCKS = (2048, 8192)  # exp_retrieval_kernels' block_i, the others'
+VAR_TILES = (64, 256)  # exp_blockskip's tile_u grid
+INT_MAX = 64  # integer tables in [-64, 64]: every d=64 sum is exact in fp32
+WRAPPERS = {
+    "fused_sweep": fused_sweep,
+    "dot_sweep": erk.dot_sweep,
+    "stream_sweep": erk.stream_sweep,
+    "multiacc_sweep": ema.multiacc_sweep,
+    "skip_sweep": ebs.skip_sweep,
+}
+VARIANTS = ("dot_sweep", "stream_sweep", "multiacc_sweep", "skip_sweep")
 T0 = time.perf_counter()
 
 
@@ -100,6 +128,15 @@ def smi_line() -> str:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
 
 
 # ------------------------------------------------------------------ checks
@@ -218,7 +255,7 @@ def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
         srv = RetrievalServer.from_checkpoint(
             emb_dir, "bx_synth", "item", "MF", dataset=data, device=device)
 
-    fused_sweep.launches = 0
+    reset_launches()
     t = time.perf_counter()
     served = [srv.topk(u, K, exclude_rated=True)[1] for u in requests]
     raw_users = data.id2user[requests[0]]
@@ -268,7 +305,7 @@ def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
 
 def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
                r=RATED_WIDTH, seed=0, reps=20):
-    """Phase 5: CUDA-event milliseconds of one sweep, plus the bound."""
+    """Phase 6: CUDA-event milliseconds of one sweep, plus the bound."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     users = torch.as_tensor(
@@ -281,16 +318,7 @@ def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
     items_t, excl_row = pad_items(items, excl)
 
     def timed(fn, n):
-        fn()
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(end) / n
+        return erk.time_ms(fn, n, device, repeats=1)
 
     ms = timed(lambda: fused_sweep(users, items_t, excl_row), reps)
     plain_ms = timed(
@@ -301,15 +329,220 @@ def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
     flops = 2.0 * n_users * n_items * d
     bytes_moved = (n_users * d * 4 + d * i_pad * 4 + i_pad
                    + n_users * CANDIDATES * 8 + n_users * LANES * 4)
-    t_ops = flops / 67e12 * 1e3  # fp32 outside the tensor cores
-    t_bytes = bytes_moved / 3.35e12 * 1e3
-    bound = max(t_ops, t_bytes)
+    bound, by = sweep_bound(flops, bytes_moved)
     return {
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bound_ms": bound,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "flops": flops, "bytes": bytes_moved,
+        "bound_ms": bound, "bound_by": by, "flops": flops,
+        "bytes": bytes_moved,
     }
+
+
+# ----------------------------------------------------- the variant kernels
+def int_tables(device, n_users, n_items, d, seed, block_i=None):
+    """Integer tables in [-INT_MAX, INT_MAX] on ``device`` with 20% of the
+    items excluded: (users, items (I, d), items_t (d, I), excl). With
+    ``block_i``: users in [1, INT_MAX] and the items of block j scaled by
+    n_blocks - j, so that later blocks are dominated and skips fire (scores
+    stay below 2^24, so every sum is still exact)."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(1 if block_i else -INT_MAX, INT_MAX + 1,
+                         (n_users, d)).astype(np.float32)
+    items = rng.integers(-INT_MAX, INT_MAX + 1,
+                         (n_items, d)).astype(np.float32)
+    if block_i:
+        items *= np.repeat(np.arange(n_items // block_i, 0, -1),
+                           block_i).astype(np.float32)[:, None]
+    excl = (rng.random(n_items) < 0.2).astype(np.int8)
+    users, items, excl = (torch.as_tensor(a, device=device)
+                          for a in (users, items, excl))
+    return users, items, items.T.contiguous(), excl
+
+
+def skip_plain(users, items_t, excl, tile_u, block_i, floor_slot):
+    """The skip kernel's plain version on users zero-padded to the tile, as
+    ``skip_sweep`` pads them, with the pad rows' outputs dropped."""
+    b = users.shape[0]
+    pad = users.new_zeros((-(-b // tile_u) * tile_u, users.shape[1]))
+    pad[:b] = users
+    ref = ebs.skip_sweep_reference(pad, items_t, excl, tile_u, block_i,
+                                   floor_slot)
+    return tuple(r[:b] for r in ref[:3]) + (ref[3],)
+
+
+def skip_pair(users, items_t, excl, tile_u, block_i, floor_slot):
+    """The skip kernel's outputs and its plain version's."""
+    args = (users, items_t, excl, tile_u, block_i, floor_slot)
+    return ebs.skip_sweep(*args), skip_plain(*args)
+
+
+def variants_run(device, n_users=2048, n_items=VAR_ITEMS, d=D,
+                 blocks=VAR_BLOCKS, tiles=VAR_TILES, check_users=1024,
+                 check_items=24_576, iters=2, seed=0):
+    """Phase 5: the experiment path (launches counted), then every variant
+    kernel against its plain version. Returns {kernel: {"launches": n,
+    "max_abs_err": x}} for the four variant kernels."""
+    device = torch.device(device)
+    small, big = blocks
+
+    # the experiment path, through the tools' entry points
+    rng = np.random.default_rng(seed)
+    ue, ie = ebs.make_tables("skew_sorted", check_users, check_items, rng)
+    rat = np.full((check_users, ebs.MAX_RATED), check_items, np.int32)
+    for u in range(check_users):
+        n = rng.integers(ebs.MAX_RATED // 4, ebs.MAX_RATED)
+        rat[u, :n] = rng.choice(check_items, n, replace=False)
+    reset_launches()
+    t = time.perf_counter()
+    erk.main(["--users", str(n_users), "--items", str(n_items), "--dim",
+              str(d), "--iters", str(iters), "--block_i", str(small),
+              "--device", str(device)])
+    ema.check(check_users, check_items, tiles[-1], small, device=device)
+    stats = ebs.check_exact(ue, ie, rat, tiles[0], big, 0, device)
+    _sync(device)
+    launches = launch_counts()
+    log(f"  experiment path {time.perf_counter() - t:.2f} s, launches "
+        f"{launches}; blockskip check (skew_sorted, tile_u {tiles[0]}, "
+        f"rv[0]) {stats}")
+    if device.type == "cuda":
+        missing = [k for k in VARIANTS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"the experiment path launched no {missing}")
+
+    # every kernel bit-equal to its plain version on integer tables
+    errs = dict.fromkeys(VARIANTS, 0.0)
+
+    def hold(name, label, got, ref):
+        for g, r in zip(got, ref):
+            err = float((g.double() - r.double()).abs().max())
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"{name} {label}: kernel differs from its plain version "
+                    f"(max abs err {err})")
+            errs[name] = max(errs[name], err)
+        log(f"  {name} {label}: bit-equal to its plain version")
+
+    t = time.perf_counter()
+    users, items, items_t, excl = int_tables(device, n_users, n_items, d,
+                                             seed)
+    for transposed, tab in ((False, items), (True, items_t)):
+        hold("dot_sweep", f"transposed={transposed}",
+             [erk.dot_sweep(users, tab, transposed)],
+             [erk.dot_sweep_reference(users, tab, transposed)])
+    refs = {}
+    for bi in blocks:
+        refs[bi] = erk.stream_sweep_reference(users, items_t, excl, bi)
+        hold("stream_sweep", f"block_i={bi}",
+             erk.stream_sweep(users, items_t, excl, bi), refs[bi])
+    for p in ema.P_ACC:  # multiacc's plain version is the stream sweep's
+        hold("multiacc_sweep", f"P={p} block_i={big}",
+             ema.multiacc_sweep(users, items_t, excl, big, p), refs[big])
+    for tile_u in tiles:
+        for floor_slot in (0, SLOTS - 1):
+            got, ref = skip_pair(users, items_t, excl, tile_u, big,
+                                 floor_slot)
+            hold("skip_sweep", f"tile_u={tile_u} floor=rv[{floor_slot}] "
+                 f"skips {int(got[3].sum())}", got, ref)
+    users, _, items_t, excl = int_tables(device, n_users, n_items, d,
+                                         seed + 1, block_i=big)
+    for tile_u in tiles:
+        got, ref = skip_pair(users, items_t, excl, tile_u, big, 0)
+        fired = int(got[3].sum())
+        hold("skip_sweep", f"falling table tile_u={tile_u} floor=rv[0] "
+             f"skips {fired}", got, ref)
+        if fired <= 0:
+            raise AssertionError(f"tile_u={tile_u}: no block was skipped on "
+                                 "the falling table")
+    _sync(device)
+    log(f"  kernel vs plain {time.perf_counter() - t:.2f} s")
+    return {k: {"launches": launches[k], "max_abs_err": errs[k]}
+            for k in VARIANTS}
+
+
+def sweep_bound(flops, bytes_moved):
+    """(ms, "operations" or "bytes"): fp32 operations at 67 TFLOP/s (outside
+    the tensor cores) against bytes at 3.35 TB/s, the larger."""
+    t_ops = flops / 67e12 * 1e3
+    t_bytes = bytes_moved / 3.35e12 * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
+                  r=RATED_WIDTH, blocks=VAR_BLOCKS, tiles=VAR_TILES,
+                  p_row=4, reps=10, seed=0):
+    """Phase 6 for the variants: per kernel, ms per sweep (CUDA events;
+    the host clock on the CPU), its plain version's, a library yardstick's
+    and the bound, on N(0,1) tables with 20% of the items excluded."""
+    device = torch.device(device)
+    small, big = blocks
+    rng = np.random.default_rng(seed)
+    users = torch.as_tensor(
+        rng.standard_normal((n_users, d), dtype=np.float32), device=device)
+    items = torch.as_tensor(
+        rng.standard_normal((n_items, d), dtype=np.float32), device=device)
+    items_t = items.T.contiguous()
+    excl = torch.as_tensor((rng.random(n_items) < 0.2).astype(np.int8),
+                           device=device)
+
+    def ms(fn, n=reps):
+        return erk.time_ms(fn, n, device, repeats=1)
+
+    flops = 2.0 * n_users * n_items * d
+    tables = n_users * d * 4 + n_items * d * 4
+    cands = n_items + n_users * (CANDIDATES * 8 + LANES * 4)
+    topk_ms = ms(lambda: torch.topk(exact_scores(users, items), k + r,
+                                    dim=1), 3)
+    rows = {}
+
+    def row(name, kernel_ms, plain_ms, library_ms, bytes_moved, note):
+        bound, by = sweep_bound(flops, bytes_moved)
+        rows[name] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound,
+                      "bound_by": by}
+        log(f"  {name} {n_users} x {n_items} d={d} {note}: kernel "
+            f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+            f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+
+    dot_ms = {tr: ms(lambda: erk.dot_sweep(users, tab, tr))
+              for tr, tab in ((False, items), (True, items_t))}
+    log(f"  dot_sweep items (I, d): {dot_ms[False]:.3f} ms")
+    row("dot_sweep", dot_ms[True],
+        ms(lambda: erk.dot_sweep_reference(users, items_t, True), 3),
+        ms(lambda: exact_scores(users, items).view(
+            n_users, -1, LANES).amax(1), 3),
+        tables + n_users * LANES * 4,
+        "items (d, I); library = matmul + amax (the same function)")
+    stream = {}
+    for bi in blocks:
+        stream[bi] = ms(lambda: erk.stream_sweep(users, items_t, excl, bi))
+        log(f"  stream_sweep block_i={bi}: {stream[bi]:.3f} ms")
+    row("stream_sweep", stream[small],
+        ms(lambda: erk.stream_sweep_reference(users, items_t, excl, small), 1),
+        topk_ms, tables + cands,
+        f"block_i={small}; library = matmul + topk({k + r}), less work")
+    multi = {}
+    for p in ema.P_ACC:
+        multi[p] = ms(lambda: ema.multiacc_sweep(users, items_t, excl, big, p))
+        log(f"  multiacc_sweep P={p} block_i={big}: {multi[p]:.3f} ms")
+    row("multiacc_sweep", multi[p_row],
+        ms(lambda: ema.multiacc_sweep_reference(users, items_t, excl, big,
+                                                p_row), 1),
+        topk_ms, tables + cands,
+        f"P={p_row} block_i={big}; library = matmul + topk({k + r}), less "
+        "work")
+    skip = {}
+    for tile_u in tiles:
+        skip[tile_u] = ms(lambda: ebs.skip_sweep(users, items_t, excl, tile_u,
+                                                 big, 0), 2)
+        log(f"  skip_sweep tile_u={tile_u} floor=rv[0] block_i={big}: "
+            f"{skip[tile_u]:.3f} ms")
+    tile_u = tiles[-1]
+    row("skip_sweep", skip[tile_u],
+        ms(lambda: skip_plain(users, items_t, excl, tile_u, big, 0), 1),
+        topk_ms, tables + cands + n_users // tile_u * 4,
+        f"tile_u={tile_u} floor=rv[0] block_i={big}; library = matmul + "
+        f"topk({k + r}), less work")
+    return rows
 
 
 def main() -> int:
@@ -331,11 +564,13 @@ def main() -> int:
         run_phase("kernel-ml", kernel_vs_plain, device, 2048, ML_ITEMS),
     ]
     launches = run_phase("slice", slice_run, device, *BX)
+    variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
     log(f"  sweep 2048 x {BX[1]} d={D} [{smi}]: kernel {t['ms']:.3f} ms, "
         f"plain {t['plain_ms']:.3f} ms, library (matmul+topk) "
         f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
         f"({t['bound_by']}: {t['flops']:.3e} FLOP, {t['bytes']:.3e} B)")
+    tv = run_phase("timing-variants", time_variants, device)
 
     kernels = [{
         "name": "fused_sweep",
@@ -350,6 +585,21 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }]
+    for name, source, replaces in (
+            ("dot_sweep", "exp_retrieval_kernels.cu",
+             "tools/exp_retrieval_kernels.py:55"),
+            ("stream_sweep", "exp_retrieval_kernels.cu",
+             "tools/exp_retrieval_kernels.py:94"),
+            ("multiacc_sweep", "exp_multiacc.cu", "tools/exp_multiacc.py:72"),
+            ("skip_sweep", "exp_blockskip.cu", "tools/exp_blockskip.py:57")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"coldrec_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            **variants[name],
+            **tv[name],
+        })
     log(f"total {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

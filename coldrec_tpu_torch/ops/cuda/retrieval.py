@@ -35,6 +35,7 @@ import torch
 
 from ...device import resolve_device
 from ...runtime.eval import exact_scores, masked_topk
+from .build import launch
 
 NEG = -10e8  # reference mask value (BaseRecommender.py:177-180)
 INIT_NEG = -4e9  # below NEG: masked items still rank above "nothing seen"
@@ -46,12 +47,12 @@ REFERENCE_CHUNK = 256  # users per score plane in fused_sweep_reference
 FALLBACK_CHUNK = 4096  # rows per exact-fallback chunk (bounds the score plane)
 
 
-def _check_sweep_inputs(users, items_t, excl):
+def _check_sweep_inputs(users, items_t, excl, name="fused_sweep"):
     if users.dtype == torch.bfloat16 or items_t.dtype == torch.bfloat16:
         raise NotImplementedError("bf16 retrieval is not in the port yet")
     if users.dtype != torch.float32 or items_t.dtype != torch.float32:
         raise TypeError(
-            f"fused_sweep takes float32 tables, got {users.dtype}/{items_t.dtype}"
+            f"{name} takes float32 tables, got {users.dtype}/{items_t.dtype}"
         )
     if excl.dtype != torch.int8:
         raise TypeError(f"excl must be int8, got {excl.dtype}")
@@ -69,7 +70,16 @@ def _check_sweep_inputs(users, items_t, excl):
         raise ValueError("users, items_t and excl must be on one device")
     if not (users.is_contiguous() and items_t.is_contiguous()
             and excl.is_contiguous()):
-        raise ValueError("fused_sweep takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def empty_candidates(b: int, device):
+    """Uninitialised (cand_v, cand_i, ghost) outputs for ``b`` users."""
+    return (
+        torch.empty((b, CANDIDATES), dtype=torch.float32, device=device),
+        torch.empty((b, CANDIDATES), dtype=torch.int32, device=device),
+        torch.empty((b, LANES), dtype=torch.float32, device=device),
+    )
 
 
 def fused_sweep(
@@ -83,28 +93,13 @@ def fused_sweep(
         return fused_sweep_reference(users, items_t, excl)
     if users.device.type != "cuda":
         raise ValueError(f"no retrieval kernel for device {users.device}")
-    from .build import load_library
-
-    lib = load_library()
     b, d = users.shape
     i_pad = items_t.shape[1]
-    cand_v = torch.empty((b, CANDIDATES), dtype=torch.float32,
-                         device=users.device)
-    cand_i = torch.empty((b, CANDIDATES), dtype=torch.int32,
-                         device=users.device)
-    ghost = torch.empty((b, LANES), dtype=torch.float32, device=users.device)
-    with torch.cuda.device(users.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.coldrec_fused_sweep(
-            users.data_ptr(), items_t.data_ptr(), excl.data_ptr(),
-            cand_v.data_ptr(), cand_i.data_ptr(), ghost.data_ptr(),
-            b, d, i_pad, stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"coldrec_fused_sweep launch failed: CUDA error {err} "
-            f"({lib.coldrec_error_string(err).decode()})"
-        )
+    cand_v, cand_i, ghost = empty_candidates(b, users.device)
+    launch("coldrec_fused_sweep", users.device,
+           users.data_ptr(), items_t.data_ptr(), excl.data_ptr(),
+           cand_v.data_ptr(), cand_i.data_ptr(), ghost.data_ptr(),
+           b, d, i_pad)
     fused_sweep.launches += 1
     return cand_v, cand_i, ghost
 

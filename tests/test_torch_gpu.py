@@ -121,3 +121,100 @@ def test_wrapper_refuses_bad_card_input(cuda):
         tret.fused_sweep(users.bfloat16(), items_t.bfloat16(), excl)
     with pytest.raises(ValueError):
         tret.fused_sweep(users, items_t.cpu(), excl)
+
+
+# ---------------------------------------------- kernel-variant experiments
+from coldrec_tpu_torch.tools import exp_blockskip as tebs  # noqa: E402
+from coldrec_tpu_torch.tools import exp_multiacc as tema  # noqa: E402
+from coldrec_tpu_torch.tools import exp_retrieval_kernels as terk  # noqa: E402
+
+
+def _variant_tables(device, n_users, n_items, d, seed, block_i=None):
+    """Integer tables on the card (every sum exact), 20% of items excluded.
+    With ``block_i``: positive users and non-negative items scaled down
+    block by block, so that block skips fire."""
+    rng = np.random.default_rng(seed)
+    lo = 1 if block_i else -8
+    users = rng.integers(lo, 9, (n_users, d)).astype(np.float32)
+    items = rng.integers(0 if block_i else -8, 9,
+                         (n_items, d)).astype(np.float32)
+    if block_i:
+        items *= np.repeat(np.arange(n_items // block_i, 0, -1),
+                           block_i).astype(np.float32)[:, None]
+    excl = (rng.random(n_items) < 0.2).astype(np.int8)
+    users, items, excl = (torch.as_tensor(a, device=device)
+                          for a in (users, items, excl))
+    return users, items, items.T.contiguous(), excl
+
+
+def _launched(wrapper, fn):
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+def _assert_same(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.device == r.device and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("n_users,n_items,d", [(37, 1280, 64), (5, 384, 3),
+                                               (9, 256, 130)])
+def test_dot_kernel_matches_plain(cuda, transposed, n_users, n_items, d):
+    users, items, items_t, _ = _variant_tables(cuda, n_users, n_items, d, 5)
+    tab = items_t if transposed else items
+    got = _launched(terk.dot_sweep,
+                    lambda: terk.dot_sweep(users, tab, transposed))
+    _assert_same([got], [terk.dot_sweep_reference(users, tab, transposed)])
+
+
+@pytest.mark.parametrize("block_i", [128, 512])
+def test_stream_kernel_matches_plain(cuda, block_i):
+    users, _, items_t, excl = _variant_tables(cuda, 37, 2048, 16, 6)
+    got = _launched(terk.stream_sweep, lambda: terk.stream_sweep(
+        users, items_t, excl, block_i))
+    _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
+                                                  block_i))
+
+
+@pytest.mark.parametrize("p_acc", tema.P_ACC)
+@pytest.mark.parametrize("block_i", [384, 1024])
+def test_multiacc_kernel_matches_plain(cuda, p_acc, block_i):
+    users, _, items_t, excl = _variant_tables(cuda, 37, 3072, 16, 7)
+    got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
+        users, items_t, excl, block_i, p_acc))
+    _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
+                                                  block_i))
+
+
+@pytest.mark.parametrize("tile_u,floor_slot", [(8, 0), (8, 7), (64, 0),
+                                               (256, 7)])
+def test_skip_kernel_matches_plain_where_skips_fire(cuda, tile_u, floor_slot):
+    users, _, items_t, excl = _variant_tables(cuda, 300, 4096, 8, 8,
+                                              block_i=256)
+    got = _launched(tebs.skip_sweep, lambda: tebs.skip_sweep(
+        users, items_t, excl, tile_u, 256, floor_slot))
+    pad = torch.zeros((got[3].numel() * tile_u, 8), device=cuda)
+    pad[:300] = users
+    ref = tebs.skip_sweep_reference(pad, items_t, excl, tile_u, 256,
+                                    floor_slot)
+    _assert_same(got, [r[:300] for r in ref[:3]] + [ref[3]])
+    assert int(got[3].max()) > 0
+
+
+def test_variant_wrappers_refuse_bad_card_input(cuda):
+    users = torch.zeros((4, 8), device=cuda)
+    items_t = torch.zeros((8, 512), device=cuda)
+    excl = torch.zeros(512, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        terk.stream_sweep(users, items_t.cpu(), excl, 256)
+    with pytest.raises(ValueError):
+        tema.multiacc_sweep(users, items_t, excl, 384, 2)
+    with pytest.raises(ValueError):
+        tebs.skip_sweep(users, items_t, excl, 8, 256, 9)
+    with pytest.raises(TypeError):
+        terk.dot_sweep(users.half(), items_t, True)

@@ -78,12 +78,22 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
         "n = cs.slice_run('cpu', 300, 2000, 8000, d=16, n_requests=2,\n"
         "                 request_size=32)\n"
         "assert n == 0, n\n"
+        "v = cs.variants_run('cpu', 32, 4096, d=8, blocks=(128, 256),\n"
+        "                    tiles=(8, 16), check_users=16,\n"
+        "                    check_items=2048)\n"
+        "assert set(v) == set(cs.VARIANTS), v\n"
+        "assert all(r == {'launches': 0, 'max_abs_err': 0.0}\n"
+        "           for r in v.values()), v\n"
+        "t = cs.time_variants('cpu', 32, 1024, d=8, blocks=(128, 256),\n"
+        "                     tiles=(8, 16), reps=1)\n"
+        "assert all(r['bound_ms'] > 0 and r['ms'] > 0 for r in t.values())\n"
         "print('REHEARSAL OK')\n"
     )
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "REHEARSAL OK" in proc.stdout
     assert "[all setting]" in proc.stdout
+    assert "falling table tile_u=16 floor=rv[0]" in proc.stdout
     blocked = _run_blocked("import jax\n", tmp_path)
     assert blocked.returncode != 0  # the block really holds
 
@@ -125,10 +135,26 @@ def test_entry_points_default_to_the_card():
     from coldrec_tpu_torch.runtime.serving import RetrievalServer
     from coldrec_tpu_torch.runtime.trainer import three_way_test
 
+    from coldrec_tpu_torch.tools import exp_blockskip as ebs
+    from coldrec_tpu_torch.tools import exp_multiacc as ema
+    from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
+
     data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
     ue = np.zeros((data.user_num, 4), np.float32)
     ie = np.zeros((data.item_num, 4), np.float32)
+    tiny = ["--users", "8", "--items", "256"]
     calls = [
+        lambda: erk.main(tiny),
+        lambda: ema.main(tiny),
+        lambda: ema.main(["--check"]),
+        lambda: ebs.main(tiny),
+        lambda: ema.make_inputs(8, 256, 8, 128),
+        lambda: ema.check(8, 256, 8, 128),
+        lambda: ema.bench(8, 256, 8, 128),
+        lambda: ebs._pad_inputs(ue, ie, 8, 128),
+        lambda: ebs.check_exact(ue, ie, np.zeros((data.user_num, 1)), 8, 128,
+                                0),
+        lambda: ebs.bench(ebs.skip_sweep, ue, ie, 8, 128),
         lambda: resolve_device(),
         lambda: MF(10, 10, 4),
         lambda: MF.from_jax_params({"user_emb": ue, "item_emb": ie}),
