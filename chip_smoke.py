@@ -7,18 +7,26 @@ Phases, each printed with its seconds:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds the kernels from ``coldrec_tpu_torch/csrc``;
   3. kernel   the retrieval kernel against its plain PyTorch version at
-              d=64 on 2048 users x 270,170 items and 2048 x 3,706 items: the
-              candidate values and ghosts agree within ``VALUE_TOL``, every
-              non-candidate scores <= the user's max ghost, and the final
-              top-k ids equal the exact plain path's on every row whose
-              top-(k+1) scores are separated by more than ``GAP_REL``;
-  4. slice    the main path at book-crossing shape: MF tables written to the
+              d=64 on 2048 users x 270,170 items (kernel-bx) and 2048 x
+              3,706 items (kernel-ml): the candidate values and ghosts agree
+              within ``VALUE_TOL``, every non-candidate scores <= the user's
+              max ghost, and the final top-k ids equal the exact plain
+              path's on every row whose top-(k+1) scores are separated by
+              more than ``GAP_REL``; kernel-ml adds an integer table with
+              NaN item rows (bit-equal, no NaN in a slot or a ghost);
+  4. kernel-int  integer tables at 2048 and at 512 users x 270,170 items:
+              the sweep (split into parts and merged at 512) bit for bit
+              equal to its plain version, and the merge kernel equal to its
+              plain version on the plain per-part sweeps;
+  5. slice    the main path at book-crossing shape: MF tables written to the
               npz bus, served through ``RetrievalServer`` (8 requests of 512
               users, then raw ids) and three-way tested through
               ``EvalSweep.run_kernel``; the same lists through the plain path
-              must agree by the rule of phase 3, and the kernel must have
-              launched (launch counts are zeroed just before this phase);
-  5. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
+              must agree by the rule of phase 3, and both kernels (sweep and
+              merge) must have launched (launch counts are zeroed just before
+              the main path); then the steps of ``retrieval_topk`` after the
+              kernel timed on their own for the overall test setting;
+  6. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
               first their path, driven through the tools' entry points with
               every launch count zeroed just before and read just after
               (``exp_retrieval_kernels.main`` at the tools' width of 2048
@@ -29,7 +37,8 @@ Phases, each printed with its seconds:
               stream at block_i 2048 and 8192, multiacc at P = 1, 2, 4, 8,
               skip at tile_u 64 and 256 with floors rv[0] and rv[7], and a
               table on which skips fire (count > 0 and equal);
-  6. timing   CUDA-event times of one 2048-user sweep of every kernel: the
+  7. timing   CUDA-event times of one sweep of every kernel (2048 users, and
+              the 512-user serving request for the sweep and the merge): the
               kernel, its plain version and one library yardstick, beside
               the least time the card could take.
 
@@ -56,14 +65,16 @@ import torch
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset
 from coldrec_tpu_torch.models.mf import MF
 from coldrec_tpu_torch.ops.cuda import build as kbuild
+from coldrec_tpu_torch.ops.cuda import retrieval as ret
 from coldrec_tpu_torch.ops.cuda.retrieval import (
-    CANDIDATES, INIT_NEG, LANES, SLOTS, fused_sweep, fused_sweep_reference,
-    pad_items, retrieval_topk,
+    CANDIDATES, INIT_NEG, LANES, SLOTS, USER_CHUNK, fused_sweep,
+    fused_sweep_reference, merge_parts, merge_parts_reference, pad_items,
+    retrieval_topk, sweep_parts_reference,
 )
 from coldrec_tpu_torch.runtime.checkpoints import save_embeddings
-from coldrec_tpu_torch.runtime.eval import exact_scores, masked_topk
+from coldrec_tpu_torch.runtime.eval import EvalSweep, exact_scores, masked_topk
 from coldrec_tpu_torch.runtime.serving import RetrievalServer
-from coldrec_tpu_torch.runtime.trainer import three_way_test
+from coldrec_tpu_torch.runtime.trainer import SETTING_SPLITS, three_way_test
 from coldrec_tpu_torch.tools import exp_blockskip as ebs
 from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
@@ -87,8 +98,10 @@ VAR_ITEMS = 270_336
 VAR_BLOCKS = (2048, 8192)  # exp_retrieval_kernels' block_i, the others'
 VAR_TILES = (64, 256)  # exp_blockskip's tile_u grid
 INT_MAX = 64  # integer tables in [-64, 64]: every d=64 sum is exact in fp32
+SERVE_USERS = 512  # users per serving request
 WRAPPERS = {
     "fused_sweep": fused_sweep,
+    "merge_parts": merge_parts,
     "dot_sweep": erk.dot_sweep,
     "stream_sweep": erk.stream_sweep,
     "multiacc_sweep": ema.multiacc_sweep,
@@ -232,10 +245,142 @@ def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
     return {"max_abs_err": err, "rows": rows, "id_equal_rows": equal}
 
 
+def hold_equal(name, got, ref):
+    """Raise unless every output equals its plain version bit for bit;
+    returns the max abs difference (0.0)."""
+    err = 0.0
+    for g, r in zip(got, ref):
+        if not torch.equal(g, r):
+            diff = (g.double() - r.double()).abs()
+            raise AssertionError(
+                f"{name}: kernel differs from its plain version (max abs "
+                f"err {float(diff[diff == diff].max())})")
+        err = max(err, float((g.double() - r.double()).abs().max()))
+    return err
+
+
+def sweep_parts_on(device, n_users, d, i_pad):
+    """The item ranges the kernel splits this sweep into (on the CPU, where
+    the wrapper computes its plain version, 4 to rehearse the merge)."""
+    if device.type != "cuda":
+        return 4
+    return kbuild.sweep_parts("coldrec_fused_sweep_parts", device, n_users,
+                              d, i_pad)
+
+
+def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
+    """``fused_sweep`` bit for bit against its plain version on integer
+    tables (every sum exact, many ties) with 20% of the items excluded and,
+    with ``nan_items``, that many NaN item rows (three in one lane class);
+    then the merge kernel against its plain version on the plain per-part
+    sweeps, at the kernel's part count for this batch (at least 2)."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    ue = rng.integers(-INT_MAX, INT_MAX + 1, (n_users, d)).astype(np.float32)
+    ie = rng.integers(-INT_MAX, INT_MAX + 1, (n_items, d)).astype(np.float32)
+    nan_rows = np.zeros(0, np.int64)
+    if nan_items:
+        nan_rows = np.unique(np.concatenate([
+            rng.choice(n_items, nan_items, replace=False), [5, 133, 261]]))
+        ie[nan_rows] = np.nan
+    excluded = rng.random(n_items) < 0.2
+    users = torch.as_tensor(ue, device=device)
+    items_t, excl_row = pad_items(torch.as_tensor(ie, device=device),
+                                  torch.as_tensor(excluded, device=device))
+    got = fused_sweep(users, items_t, excl_row)
+    err = hold_equal("fused_sweep", got,
+                     fused_sweep_reference(users, items_t, excl_row))
+    if bool(got[0].isnan().any() or got[2].isnan().any()):
+        raise AssertionError("a NaN score reached a slot or a ghost")
+    # an excluded item scores NEG, NaN or not; any other NaN item is dropped
+    filled = got[1][got[0] > INIT_NEG].cpu().numpy()
+    if np.isin(filled, nan_rows[~excluded[nan_rows]]).any():
+        raise AssertionError("a NaN item is a candidate")
+    parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
+    pv, pi, pg = sweep_parts_reference(users, items_t, excl_row, parts)
+    merr = hold_equal("merge_parts", merge_parts(pv, pi, pg),
+                      merge_parts_reference(pv, pi, pg))
+    _sync(device)
+    log(f"  integer table {n_users}x{n_items} d={d}, {len(nan_rows)} NaN "
+        f"items: fused_sweep bit-equal to its plain version; merge_parts "
+        f"bit-equal at {parts} parts")
+    return {"fused_sweep": err, "merge_parts": merr}
+
+
+def kernel_ml(device, n_users=2048, n_items=ML_ITEMS):
+    """Phase kernel-ml: the N(0,1) check of phase 3 and the NaN table."""
+    out = kernel_vs_plain(device, n_users, n_items)
+    exact = exact_sweep_check(device, n_users, n_items, nan_items=200)
+    return {"max_abs_err": max(out["max_abs_err"], exact["fused_sweep"]),
+            "merge_err": exact["merge_parts"]}
+
+
+def kernel_int(device, n_items=BX[1], sizes=(2048, SERVE_USERS)):
+    """Phase kernel-int: integer tables at the eval chunk and the serving
+    shape (where the sweep is split and merged)."""
+    errs = [exact_sweep_check(device, n, n_items, seed=4 + n) for n in sizes]
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def host_split(device, data, ue, ie, k=K, setting="all"):
+    """The steps of ``retrieval_topk`` on one test setting's users, each
+    synchronised and timed on its own (host clock): the kernel, ``_resolve``,
+    the downloads, the tie order and the exact fallback."""
+    sweep = EvalSweep(data, "item", USER_CHUNK, k, device=device)
+    split = SETTING_SPLITS[(setting, "test")]
+    st = sweep._prepare(split, setting)
+    users = st["user_chunks"].reshape(-1)[: st["n_users"]]
+    width = max(st["rated_widths"])
+    rated = torch.as_tensor(st["rated_chunks"][:, :, :width].reshape(
+        -1, width)[: st["n_users"]], device=device).long()
+    rows = ue[torch.as_tensor(users, device=device).long()]
+    excl = st["bias"].bool()
+    secs = dict.fromkeys(("pad", "kernel", "resolve", "download",
+                          "tie_order", "fallback"), 0.0)
+
+    def timed(step, fn):
+        _sync(device)
+        t = time.perf_counter()
+        out = fn()
+        _sync(device)
+        secs[step] += time.perf_counter() - t
+        return out
+
+    items_t, excl_row = timed("pad", lambda: pad_items(ie, excl))
+    vals_l, ids_l, sus_l = [], [], []
+    for s in range(0, rows.shape[0], USER_CHUNK):
+        e = min(rows.shape[0], s + USER_CHUNK)
+        cv, ci, gh = timed("kernel", lambda: fused_sweep(
+            rows[s:e].contiguous(), items_t, excl_row))
+        v, i, sus = timed("resolve", lambda: ret._resolve(
+            cv, ci, gh, rated[s:e], k))
+        v, i, sus = timed("download", lambda: (
+            v.cpu().numpy(), i.cpu().numpy(), sus.cpu().numpy()))
+        vals_l.append(v)
+        ids_l.append(i)
+        sus_l.append(sus)
+    vals, ids = timed("tie_order", lambda: ret._torch_tie_order(
+        np.concatenate(vals_l), np.concatenate(ids_l)))
+    sus = np.concatenate(sus_l)
+
+    def exact_chunk(rows_pad):
+        r = torch.as_tensor(rows_pad, device=device)
+        return ret._exact_rows(rows[r], ie, rated[r], excl, k)
+
+    timed("fallback", lambda: ret.apply_exact_fallback(vals, ids, sus,
+                                                       exact_chunk))
+    total = sum(secs.values())
+    log(f"  host split ({setting} setting, {rows.shape[0]} users, "
+        f"{int(sus.sum())} rows to the fallback): " + ", ".join(
+            f"{n} {v:.4f} s" for n, v in secs.items())
+        + f"; kernel {secs['kernel'] / total:.1%} of {total:.3f} s")
+    return secs
+
+
 def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
               n_requests=8, request_size=512, seed=0):
     """Phase 4: the main path (serving + three-way test) and its checks.
-    Returns the kernel launches counted during the main path."""
+    Returns the launches of each kernel counted during the main path."""
     device = torch.device(device)
     t = time.perf_counter()
     data, _ = synthetic_dataset(n_users, n_items, n_inter,
@@ -267,12 +412,14 @@ def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
                          device=device)
     _sync(device)
     t_test = time.perf_counter() - t
-    launches = fused_sweep.launches
+    launches = {name: launch_counts()[name]
+                for name in ("fused_sweep", "merge_parts")}
     log(f"  serving {n_requests}x{request_size} users + 1 raw-id request "
-        f"{t_serve:.2f} s; three-way test {t_test:.2f} s; "
-        f"kernel launches {launches}")
-    if device.type == "cuda" and launches <= 0:
-        raise AssertionError("the main path launched no retrieval kernel")
+        f"{t_serve:.2f} s ({t_serve / (n_requests + 1):.4f} s per request); "
+        f"three-way test {t_test:.2f} s; kernel launches {launches}")
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"the main path left a kernel unlaunched: "
+                             f"{launches}")
 
     # checks: raw ids round-trip, lists vs the plain path, metrics finite
     if not np.array_equal(raw_items, data.id2item[served[0]]):
@@ -300,6 +447,7 @@ def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
             raise AssertionError(f"{setting}: bad metrics {perf}")
         log(f"  {setting}: {rows} users, lists id-equal to the plain path "
             f"on {equal} (others near-ties)")
+    host_split(device, data, ue, ie)
     return launches
 
 
@@ -335,6 +483,34 @@ def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
         "bound_ms": bound, "bound_by": by, "flops": flops,
         "bytes": bytes_moved,
     }
+
+
+def time_merge(device, n_users=SERVE_USERS, n_items=BX[1], d=D, seed=0,
+               reps=20):
+    """CUDA-event milliseconds of the merge at the serving shape, on the
+    plain per-part sweeps of N(0,1) tables at the kernel's part count, with
+    its plain version's and the bound (bytes: every part read once, the
+    result written once). No single library call merges sorted slots."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    users = torch.as_tensor(
+        rng.standard_normal((n_users, d), dtype=np.float32), device=device)
+    items = torch.as_tensor(
+        rng.standard_normal((n_items, d), dtype=np.float32), device=device)
+    items_t, excl_row = pad_items(items, torch.zeros(n_items, dtype=torch.bool,
+                                                     device=device))
+    parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
+    pv, pi, pg = sweep_parts_reference(users, items_t, excl_row, parts)
+    ms = erk.time_ms(lambda: merge_parts(pv, pi, pg), reps, device,
+                     repeats=1)
+    plain_ms = erk.time_ms(lambda: merge_parts_reference(pv, pi, pg), 3,
+                           device, repeats=1)
+    row_bytes = CANDIDATES * 8 + LANES * 4
+    bound, by = sweep_bound(0.0, (parts + 1) * n_users * row_bytes)
+    log(f"  merge_parts {n_users} users x {parts} parts: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "parts": parts}
 
 
 # ----------------------------------------------------- the variant kernels
@@ -412,13 +588,7 @@ def variants_run(device, n_users=2048, n_items=VAR_ITEMS, d=D,
     errs = dict.fromkeys(VARIANTS, 0.0)
 
     def hold(name, label, got, ref):
-        for g, r in zip(got, ref):
-            err = float((g.double() - r.double()).abs().max())
-            if not torch.equal(g, r):
-                raise AssertionError(
-                    f"{name} {label}: kernel differs from its plain version "
-                    f"(max abs err {err})")
-            errs[name] = max(errs[name], err)
+        errs[name] = max(errs[name], hold_equal(f"{name} {label}", got, ref))
         log(f"  {name} {label}: bit-equal to its plain version")
 
     t = time.perf_counter()
@@ -561,15 +731,19 @@ def main() -> int:
 
     errs = [
         run_phase("kernel-bx", kernel_vs_plain, device, 2048, BX[1]),
-        run_phase("kernel-ml", kernel_vs_plain, device, 2048, ML_ITEMS),
+        run_phase("kernel-ml", kernel_ml, device),
     ]
+    exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
     variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
-    log(f"  sweep 2048 x {BX[1]} d={D} [{smi}]: kernel {t['ms']:.3f} ms, "
-        f"plain {t['plain_ms']:.3f} ms, library (matmul+topk) "
-        f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
-        f"({t['bound_by']}: {t['flops']:.3e} FLOP, {t['bytes']:.3e} B)")
+    t512 = time_sweep(device, n_users=SERVE_USERS)
+    for n, r in ((2048, t), (SERVE_USERS, t512)):
+        log(f"  sweep {n} x {BX[1]} d={D} [{smi}]: kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, library (matmul+topk) "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}: {r['flops']:.3e} FLOP, {r['bytes']:.3e} B)")
+    tm = time_merge(device)
     tv = run_phase("timing-variants", time_variants, device)
 
     kernels = [{
@@ -577,13 +751,23 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
-        "launches": launches,
-        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "launches": launches["fused_sweep"],
+        "max_abs_err": max([e["max_abs_err"] for e in errs]
+                           + [exact["fused_sweep"]]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    }, {
+        "name": "merge_parts",
+        "route": "cuda",
+        "source": "coldrec_tpu_torch/csrc/retrieval.cu",
+        "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
+        "launches": launches["merge_parts"],
+        "max_abs_err": max(errs[1]["merge_err"], exact["merge_parts"]),
+        **{k: tm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
     }]
     for name, source, replaces in (
             ("dot_sweep", "exp_retrieval_kernels.cu",

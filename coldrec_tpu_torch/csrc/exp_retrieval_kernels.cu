@@ -27,89 +27,109 @@
 // against ~71 MB (dot) or ~88 MB (stream) of compulsory traffic (21-26 us
 // at 3.35 TB/s).
 //
-// Design (simple first, the structure of retrieval.cu so that the three
-// compare like with like): one block of 128 threads per tile of TILE_U
-// users; thread c owns lane class c for the tile's users and walks the items
-// of its class in increasing id order; the user tile sits in shared memory
-// as (d, TILE_U) and is read as broadcast float4s. Per item: TILE_U FFMA
-// chains of length d, then
-//   - dot: a running max per user;
-//   - stream: the block-local top-2 chain per user (5 registers), and at the
-//     end of each block the cascade into the user's 8 slots, in registers.
-// The dot kernel's (I_pad, d) layout puts one thread's item values d floats
-// apart, so a warp's reads of one dimension would touch 32 rows; the block
-// instead stages each group of 128 item rows in shared memory with
-// coalesced loads (row stride d+1, so the column reads hit 32 banks) and
-// pays two barriers per group for it. Like retrieval.cu, every block
-// streams the whole item table, mostly from L2.
+// Design.
+//   - dot: the product loop of sweep_tile.cuh, the one retrieval.cu's sweep
+//     runs on (users resident in shared memory, item groups staged by
+//     cp.async in a ring, a register tile per thread), with a running max
+//     per (user, class) in registers in place of the top-8. So it measures
+//     how close the product loop alone comes to the card. Free of the top-8
+//     state, it takes a wider tile (DotTile) than retrieval.cu can. The (d, I_pad) table
+//     is staged with 16-byte copies (4-byte ones when it is not 16-byte
+//     aligned); the (I_pad, d) table with 4-byte copies that transpose each
+//     group into the same (DC, 128) tile, so d need not be a multiple of 4.
+//     The item range is split into parts to fill the SMs (as in
+//     retrieval.cu); with more than one part a second kernel takes the max
+//     over the parts' (B, 128) outputs.
+//   - stream (simple first, the structure of the first retrieval sweep): one
+//     block of 128 threads per tile of TILE_U users; thread c owns lane
+//     class c for the tile's users and walks the items of its class in
+//     increasing id order; the user tile sits in shared memory as
+//     (d, TILE_U) and is read as broadcast float4s. Per item: TILE_U FFMA
+//     chains of length d, then the block-local top-2 chain per user
+//     (5 registers), and at the end of each block the cascade into the
+//     user's 8 slots, in registers. Every block streams the whole item
+//     table, mostly from L2.
 #include "sweep_common.cuh"
+#include "sweep_tile.cuh"
 
 namespace {
 
 using namespace coldrec_exp;
+namespace tile = coldrec_tile;
 
-constexpr int TILE_U = 4;  // users per block
+constexpr int TILE_U = 4;  // users per block of the stream sweep
 
-template <int TU, bool TRANSPOSED>
-__global__ void __launch_bounds__(LANES)
-dot_sweep_kernel(const float* __restrict__ users,
-                 const float* __restrict__ items, float* __restrict__ out,
-                 int n_users, int d, int i_pad) {
-  extern __shared__ float4 smem4[];
-  float* su = reinterpret_cast<float*>(smem4);  // (d, TU)
-  float* sit = su + TU * d;  // (128, d + 1) staged rows, (I_pad, d) layout
-  const int c = threadIdx.x;
-  const int u0 = blockIdx.x * TU;
-  load_users(su, users, u0, TU, n_users, d, c, LANES);
-  __syncthreads();
+// The dot ceiling's tile: with no top-8 to hold, a thread takes a wider
+// register tile than retrieval.cu's (8 users x 4 items, 128 users and 512
+// threads a block), 32 dimensions per step, a ring of 4 steps.
+using DotTile = tile::Shape<128, 8, 4, 8, 1, 32, 4>;
 
-  float mx[TU];
+// Per thread: the running max of its (user, class) pairs.
+struct MaxEpilogue {
+  float mx[DotTile::RU][DotTile::RI];
+
+  __device__ __forceinline__ void begin(int, int) {}
+
+  __device__ __forceinline__ void step(int, int n,
+                                       const tile::Acc<DotTile>& acc) {
 #pragma unroll
-  for (int u = 0; u < TU; ++u) mx[u] = INIT_NEG;
-  // thread c stages elements c, c + 128, ... of a group's 128 * d floats:
-  // walk (row, col) by 128 elements at a time without a division
-  const int rstep = LANES / d;
-  const int cstep = LANES - rstep * d;
-  const int groups = i_pad / LANES;
-  for (int g = 0; g < groups; ++g) {
-    float acc[TU];
-    if constexpr (TRANSPOSED) {
-      dot_column<TU>(items + (size_t)g * LANES + c, (size_t)i_pad, su, TU,
-                     0, d, acc);
-    } else {
-      const float* rows = items + (size_t)g * LANES * d;
-      __syncthreads();  // every thread is done with the previous group
-      int r = c / d;
-      int col = c - r * d;
-      for (int k = c; k < LANES * d; k += LANES) {
-        sit[r * (d + 1) + col] = __ldg(rows + k);
-        r += rstep;
-        col += cstep;
-        if (col >= d) {
-          col -= d;
-          ++r;
+    for (int q = 0; q < DotTile::GS; ++q) {
+      if (q >= n) break;
+#pragma unroll
+      for (int u = 0; u < DotTile::RU; ++u) {
+#pragma unroll
+        for (int e = 0; e < DotTile::RI; ++e) {
+          mx[u][e] = fmaxf(mx[u][e], acc[q][u][e]);
         }
       }
-      __syncthreads();
-      const float* mine = sit + c * (d + 1);
-#pragma unroll
-      for (int u = 0; u < TU; ++u) acc[u] = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < d; ++j) {
-        const float x = mine[j];
-        float uu[TU];
-        user_values<TU>(su, j * TU, uu);
-#pragma unroll
-        for (int u = 0; u < TU; ++u) acc[u] = fmaf(uu[u], x, acc[u]);
-      }
     }
-#pragma unroll
-    for (int u = 0; u < TU; ++u) mx[u] = fmaxf(mx[u], acc[u]);
   }
+};
+
+// Block (user tile, part): the part's per-class max of the tile's users,
+// written to out + part * n_users * 128 (the output itself for one part).
+template <int LAYOUT, bool RESIDENT>
+__global__ void __launch_bounds__(DotTile::THREADS, 1)
+dot_sweep_kernel(const float* __restrict__ users,
+                 const float* __restrict__ items, float* __restrict__ out,
+                 int n_users, int d, int i_pad, int parts) {
+  extern __shared__ float4 smem4[];
+  const tile::Tile t{users, items, n_users, d, i_pad,
+                     (int)blockIdx.x * DotTile::TU};
+  const int groups = i_pad / LANES;
+  const int p = blockIdx.y;
+  MaxEpilogue epi;
 #pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    if (u0 + u < n_users) out[(size_t)(u0 + u) * LANES + c] = mx[u];
+  for (int u = 0; u < DotTile::RU; ++u) {
+#pragma unroll
+    for (int e = 0; e < DotTile::RI; ++e) epi.mx[u][e] = INIT_NEG;
   }
+  tile::sweep_walk<DotTile, LAYOUT, RESIDENT>(t, tile::part_lo(groups, parts, p),
+                                    tile::part_lo(groups, parts, p + 1),
+                                    reinterpret_cast<float*>(smem4), epi);
+  const int ug = DotTile::ug();
+  const int ig = DotTile::ig();
+#pragma unroll
+  for (int u = 0; u < DotTile::RU; ++u) {
+    const int user = t.u0 + DotTile::user(ug, u);
+    if (user >= n_users) continue;
+    const size_t row = (size_t)p * n_users + user;
+#pragma unroll
+    for (int e = 0; e < DotTile::RI; ++e) {
+      out[row * LANES + DotTile::item(ig, e)] = epi.mx[u][e];
+    }
+  }
+}
+
+// out[b, c] = max over the parts of part_out[p, b, c].
+__global__ void __launch_bounds__(LANES)
+dot_merge_kernel(const float* __restrict__ part_out, float* __restrict__ out,
+                 int n_users, int parts) {
+  const size_t at = (size_t)blockIdx.x * LANES + threadIdx.x;
+  const size_t stride = (size_t)n_users * LANES;
+  float m = part_out[at];
+  for (int p = 1; p < parts; ++p) m = fmaxf(m, part_out[p * stride + at]);
+  out[at] = m;
 }
 
 template <int TU>
@@ -168,18 +188,36 @@ stream_sweep_kernel(const float* __restrict__ users,
   }
 }
 
-template <bool TRANSPOSED>
+template <int LAYOUT, bool RESIDENT>
 int launch_dot(const float* users, const float* items, float* out,
-               int n_users, int d, int i_pad, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (TILE_U * d + (TRANSPOSED ? 0 : LANES * (d + 1)));
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(dot_sweep_kernel<TILE_U, TRANSPOSED>, smem);
+               float* scratch, int n_users, int d, int i_pad, int parts,
+               cudaStream_t stream) {
+  const size_t smem = DotTile::smem_bytes<RESIDENT>(d);
+  const cudaError_t e = cudaFuncSetAttribute(
+      dot_sweep_kernel<LAYOUT, RESIDENT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n_users + TILE_U - 1) / TILE_U);
-  dot_sweep_kernel<TILE_U, TRANSPOSED><<<grid, LANES, smem, stream>>>(
-      users, items, out, n_users, d, i_pad);
+  const dim3 grid((n_users + DotTile::TU - 1) / DotTile::TU, parts);
+  dot_sweep_kernel<LAYOUT, RESIDENT><<<grid, DotTile::THREADS, smem, stream>>>(
+      users, items, parts > 1 ? scratch : out, n_users, d, i_pad, parts);
+  if (parts > 1) {
+    const cudaError_t le = cudaGetLastError();
+    if (le != cudaSuccess) return (int)le;
+    dot_merge_kernel<<<n_users, LANES, 0, stream>>>(scratch, out, n_users,
+                                                    parts);
+  }
   return (int)cudaGetLastError();
+}
+
+template <int LAYOUT>
+int launch_dot(const float* users, const float* items, float* out,
+               float* scratch, int n_users, int d, int i_pad, int parts,
+               cudaStream_t stream) {
+  return DotTile::resident(d)
+             ? launch_dot<LAYOUT, true>(users, items, out, scratch, n_users,
+                                        d, i_pad, parts, stream)
+             : launch_dot<LAYOUT, false>(users, items, out, scratch, n_users,
+                                         d, i_pad, parts, stream);
 }
 
 }  // namespace
@@ -187,17 +225,47 @@ int launch_dot(const float* users, const float* items, float* out,
 // Both entry points launch on `stream` (PyTorch's current stream), allocate
 // nothing, do not synchronise, and return cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for arguments outside the contract).
+// The number of item ranges coldrec_dot_sweep splits a sweep of n_users
+// into on the current device (>= 1), or -1 on a CUDA error.
+extern "C" int coldrec_dot_sweep_parts(int n_users, int d, int i_pad) {
+  if (n_users <= 0 || d <= 0 || i_pad < LANES) return 1;
+  const int groups = i_pad / LANES;
+  const int parts =
+      DotTile::resident(d)
+          ? tile::choose_parts<DotTile>(
+                dot_sweep_kernel<tile::kRows16, true>,
+                DotTile::smem_bytes<true>(d), n_users, groups)
+          : tile::choose_parts<DotTile>(
+                dot_sweep_kernel<tile::kRows16, false>,
+                DotTile::smem_bytes<false>(d), n_users, groups);
+  return parts > 0 ? parts : -1;
+}
+
+// With parts > 1, `scratch` holds (parts, B, 128) floats and a second
+// kernel folds the parts into `out`.
 extern "C" int coldrec_dot_sweep(const void* users, const void* items,
-                                 void* out, int n_users, int d, int i_pad,
-                                 int transposed, void* stream) {
+                                 void* out, void* scratch, int n_users, int d,
+                                 int i_pad, int transposed, int parts,
+                                 void* stream) {
   if (d <= 0 || i_pad % LANES) return (int)cudaErrorInvalidValue;
   if (n_users <= 0 || i_pad <= 0) return (int)cudaSuccess;
+  if (parts < 1 || parts > i_pad / LANES || parts > 65535 ||
+      (parts > 1 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float* u = static_cast<const float*>(users);
   const float* it = static_cast<const float*>(items);
   float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
   const cudaStream_t s = (cudaStream_t)stream;
-  return transposed ? launch_dot<true>(u, it, o, n_users, d, i_pad, s)
-                    : launch_dot<false>(u, it, o, n_users, d, i_pad, s);
+  if (transposed) {
+    if (reinterpret_cast<uintptr_t>(items) % 16 == 0) {
+      return launch_dot<tile::kRows16>(u, it, o, sc, n_users, d, i_pad, parts,
+                                       s);
+    }
+    return launch_dot<tile::kRows4>(u, it, o, sc, n_users, d, i_pad, parts, s);
+  }
+  return launch_dot<tile::kCols4>(u, it, o, sc, n_users, d, i_pad, parts, s);
 }
 
 extern "C" int coldrec_stream_sweep(const void* users, const void* items_t,

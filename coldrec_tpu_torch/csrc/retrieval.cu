@@ -12,157 +12,277 @@
 //        cand_i  (B, 1024)   i32, the item ids of those slots
 //        ghost   (B, 128)    f32, per class the largest discarded value
 // Lane class c holds items c, c+128, c+256, ... Each class keeps its exact
-// sorted top-8 (ties: the lower id first), so every item that is not a
-// candidate scores <= its class's ghost <= the user's max ghost.
+// sorted top-8 by (-value, id); unfilled slots hold (INIT_NEG, 0). A score
+// that is NaN or not above INIT_NEG never enters a slot or the ghost. Every
+// item that is not a candidate scores <= its class's ghost.
 //
 // What bounds it on an H100: the products. At B=2048, I=270,170, d=64 the
 // sweep is 2*B*I*d = 7.1e10 fp32 operations (1.06 ms at 67 TFLOP/s outside
 // the tensor cores; exact fp32 products are the contract, so no TF32 and no
 // bf16), against ~88 MB of compulsory traffic (26 us at 3.35 TB/s). The
-// TPU kernel's (8, 256, 128) f32+i32 VMEM scratch (2 MB) fits no SM; here
-// the running top-8 lives in registers instead, and the (B, I) score plane
-// is never written.
+// TPU kernel's (8, 256, 128) f32+i32 VMEM scratch (2 MB) fits no SM, and
+// the TPU's grid carries it from item block to item block in order.
 //
-// Design (simple first): one block of 128 threads per tile of TILE_U users;
-// thread c owns lane class c for all TILE_U users and walks its items in
-// increasing id order. The user tile sits in shared memory, laid out
-// (d, TILE_U) so each step reads all TILE_U user values as one broadcast
-// float4. The reads of items_t[j, g*128 + c] are coalesced across a warp.
-// Each item costs TILE_U plain FFMA chains of length d, then an unrolled
-// compare-exchange cascade into that user's top-8 held in registers (the
-// cascade runs only when the value beats the 8th slot); the value that
-// falls off the end goes into the ghost with max. The cascade orders by
-// (-value, id): with a strict value compare alone (as in the TPU kernel) a
-// displaced value can land behind an equal one of higher id, which keeps
-// the ghost bound but not the lowest-id choice among ties.
-// Every block streams the whole item table, so the item reads (B/TILE_U
-// passes over I*d*4 bytes, mostly from L2) and not the FFMAs are what a
-// faster version must cut: a larger user tile, or a split of the item range
-// with a merge pass.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design. The product loop is the shared tile of sweep_tile.cuh: the
+// block's 16 users resident in shared memory, 8 item groups (1024 items) x
+// 16 dimensions staged per step by cp.async in a ring of 2 stages, and per
+// thread 8 users x 1 item of each of the 8 groups, so a step of one
+// dimension reads 8 user and 8 item values from shared memory for 64
+// FFMAs. Each thread owns 8 (user, class) pairs (8 users, one lane class)
+// for the whole walk and keeps their sorted top-8 (value, id) and ghost in
+// registers (136 of its 255). That state is what bounds the tile: the
+// register file holds about 2048 such pairs per SM, so 16 users a block,
+// one block of 8 warps a SM. A score that beats the pair's 8th slot is
+// inserted behind its equals (items come in increasing id order, so an
+// incumbent keeps its place on a tie); anything else only goes into the
+// ghost with fmaxf, which drops NaN.
+//
+// The item range is split into `parts` ranges on 128-item boundaries
+// (blockIdx.y), chosen by the launcher so that the blocks fill every SM
+// (coldrec_fused_sweep_parts). With parts > 1 each part writes its slots
+// and ghosts to scratch, (parts, B, 1024) x2 and (parts, B, 128), and
+// merge_parts_kernel folds them: per (user, class) the parts' slots go into
+// one sorted top-8 in part order (a later part's ids are all larger), and
+// the ghost is the max of the parts' ghosts and of every value the merge
+// drops, which is the 9th value of the whole class.
+#include "sweep_tile.cuh"
 
 namespace {
 
-constexpr int LANES = 128;
-constexpr int SLOTS = 8;
-constexpr int TILE_U = 4;  // users per block
-constexpr float NEG = -10e8f;  // reference mask value
-constexpr float INIT_NEG = -4e9f;  // below NEG: "nothing seen"
+using namespace coldrec_tile;
 
-template <int TU>
-__global__ void __launch_bounds__(LANES)
+// 16 users per block; per thread 8 users x 1 item of each of 8 groups
+// (256 threads, the 32 lanes of a warp side by side along the items), 16
+// dimensions per step, a ring of 2 steps.
+using Sweep = Shape<16, 8, 1, 32, 8, 16, 2>;
+constexpr int RU = Sweep::RU, RI = Sweep::RI;
+
+// Per thread: the sorted top-8 and the ghost of its (user, class) pairs.
+struct TopEpilogue {
+  const int8_t* __restrict__ excl;
+  int ig;  // the thread's item group: classes Sweep::item(ig, e)
+  float rv[RU][RI][SLOTS];
+  int ri[RU][RI][SLOTS];
+  float gh[RU][RI];
+  int8_t ex[Sweep::GS][RI];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+#pragma unroll
+      for (int e = 0; e < RI; ++e) {
+        gh[u][e] = INIT_NEG;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          rv[u][e][s] = INIT_NEG;
+          ri[u][e][s] = 0;
+        }
+      }
+    }
+  }
+
+  // read the exclusion bytes early: they are used after the last chunk
+  __device__ __forceinline__ void begin(int q, int g) {
+#pragma unroll
+    for (int e = 0; e < RI; ++e) {
+      ex[q][e] = __ldg(excl + g * LANES + Sweep::item(ig, e));
+    }
+  }
+
+  // the scores of groups g .. g + n - 1, in increasing id order
+  __device__ __forceinline__ void step(int g, int n,
+                                       const Acc<Sweep>& acc) {
+#pragma unroll
+    for (int q = 0; q < Sweep::GS; ++q) {
+      if (q >= n) break;
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+#pragma unroll
+        for (int e = 0; e < RI; ++e) {
+          const float v = ex[q][e] ? NEG : acc[q][u][e];
+          if (v > rv[u][e][SLOTS - 1]) {
+            gh[u][e] = fmaxf(gh[u][e],
+                             insert_sorted(rv[u][e], ri[u][e], v,
+                                           (g + q) * LANES +
+                                               Sweep::item(ig, e)));
+          } else {
+            gh[u][e] = fmaxf(gh[u][e], v);  // fmaxf drops a NaN
+          }
+        }
+      }
+    }
+  }
+};
+
+template <int LAYOUT, bool RESIDENT>
+__global__ void __launch_bounds__(Sweep::THREADS, 1)
 fused_sweep_kernel(const float* __restrict__ users,
                    const float* __restrict__ items_t,
                    const int8_t* __restrict__ excl,
-                   float* __restrict__ cand_v,
-                   int* __restrict__ cand_i,
-                   float* __restrict__ ghost,
-                   int n_users, int d, int i_pad) {
-  static_assert(TU % 4 == 0, "the user tile is read as float4s");
-  extern __shared__ float4 su4[];  // (d, TU / 4) float4: the users' value j
-  float* su = reinterpret_cast<float*>(su4);
-  const int c = threadIdx.x;
-  const int u0 = blockIdx.x * TU;
-  for (int t = c; t < TU * d; t += LANES) {
-    const int u = t / d;
-    const int j = t - u * d;
-    su[j * TU + u] =
-        (u0 + u < n_users) ? users[(size_t)(u0 + u) * d + j] : 0.0f;
-  }
-  __syncthreads();
-
-  float rv[TU][SLOTS];
-  int ri[TU][SLOTS];
-  float gh[TU];
-#pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    gh[u] = INIT_NEG;
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      rv[u][s] = INIT_NEG;
-      ri[u][s] = 0;
-    }
-  }
-
+                   float* __restrict__ out_v, int* __restrict__ out_i,
+                   float* __restrict__ out_g, int n_users, int d, int i_pad,
+                   int parts) {
+  extern __shared__ float4 smem4[];
+  const Tile t{users, items_t, n_users, d, i_pad,
+               (int)blockIdx.x * Sweep::TU};
   const int groups = i_pad / LANES;
-  for (int g = 0; g < groups; ++g) {
-    const int item = g * LANES + c;
-    const float* col = items_t + item;
-    float acc[TU];
+  const int p = blockIdx.y;
+  TopEpilogue epi;
+  epi.excl = excl;
+  epi.ig = Sweep::ig();
+  epi.init();
+  sweep_walk<Sweep, LAYOUT, RESIDENT>(t, part_lo(groups, parts, p),
+                            part_lo(groups, parts, p + 1),
+                            reinterpret_cast<float*>(smem4), epi);
+
+  const int ug = Sweep::ug();
 #pragma unroll
-    for (int u = 0; u < TU; ++u) acc[u] = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < d; ++j) {
-      const float x = __ldg(col + (size_t)j * i_pad);
+  for (int u = 0; u < RU; ++u) {
+    const int user = t.u0 + Sweep::user(ug, u);
+    if (user >= n_users) continue;  // pad users are never written
+    const size_t row = (size_t)p * n_users + user;
 #pragma unroll
-      for (int q = 0; q < TU / 4; ++q) {
-        const float4 uu = su4[j * (TU / 4) + q];
-        acc[4 * q + 0] = fmaf(uu.x, x, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(uu.y, x, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(uu.z, x, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(uu.w, x, acc[4 * q + 3]);
+    for (int e = 0; e < RI; ++e) {
+      const int c = Sweep::item(epi.ig, e);
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        out_v[row * (SLOTS * LANES) + s * LANES + c] = epi.rv[u][e][s];
+        out_i[row * (SLOTS * LANES) + s * LANES + c] = epi.ri[u][e][s];
       }
-    }
-    const bool ex = excl[item] != 0;
-#pragma unroll
-    for (int u = 0; u < TU; ++u) {
-      float v = ex ? NEG : acc[u];
-      if (v > rv[u][SLOTS - 1]) {
-        int id = item;
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          // a value displaced from an earlier slot carries a lower id than
-          // the equal values behind it, so ties compare ids too
-          const bool sw = v > rv[u][s] || (v == rv[u][s] && id < ri[u][s]);
-          const float tv = rv[u][s];
-          const int ti = ri[u][s];
-          rv[u][s] = sw ? v : tv;
-          ri[u][s] = sw ? id : ti;
-          v = sw ? tv : v;
-          id = sw ? ti : id;
-        }
-      }
-      gh[u] = fmaxf(gh[u], v);  // the value discarded by this item
+      out_g[row * LANES + c] = epi.gh[u][e];
     }
   }
+}
 
+// One thread per (user, class): fold the parts' slots and ghosts.
+__global__ void __launch_bounds__(LANES)
+merge_parts_kernel(const float* __restrict__ part_v,
+                   const int* __restrict__ part_i,
+                   const float* __restrict__ part_g, float* __restrict__ cand_v,
+                   int* __restrict__ cand_i, float* __restrict__ ghost,
+                   int n_users, int parts) {
+  const int row = blockIdx.x;
+  const int c = threadIdx.x;
+  float rv[SLOTS];
+  int ri[SLOTS];
+  float gh = INIT_NEG;
 #pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    if (u0 + u >= n_users) break;
-    const size_t row = (size_t)(u0 + u);
+  for (int s = 0; s < SLOTS; ++s) {
+    rv[s] = INIT_NEG;
+    ri[s] = 0;
+  }
+  for (int p = 0; p < parts; ++p) {
+    const size_t base = (size_t)p * n_users + row;
+    gh = fmaxf(gh, part_g[base * LANES + c]);
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
-      cand_v[row * (SLOTS * LANES) + s * LANES + c] = rv[u][s];
-      cand_i[row * (SLOTS * LANES) + s * LANES + c] = ri[u][s];
+      const size_t at = base * (SLOTS * LANES) + s * LANES + c;
+      const float v = part_v[at];
+      if (!(v > rv[SLOTS - 1])) {
+        // the part's slots are sorted: none of the rest enters either
+        gh = fmaxf(gh, v);
+        break;
+      }
+      gh = fmaxf(gh, insert_sorted(rv, ri, v, part_i[at]));
     }
-    ghost[row * LANES + c] = gh[u];
   }
+  const size_t row_at = (size_t)row * (SLOTS * LANES) + c;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    cand_v[row_at + s * LANES] = rv[s];
+    cand_i[row_at + s * LANES] = ri[s];
+  }
+  ghost[(size_t)row * LANES + c] = gh;
+}
+
+template <int LAYOUT, bool RESIDENT>
+int launch_sweep(const float* users, const float* items_t,
+                 const int8_t* excl, float* out_v, int* out_i, float* out_g,
+                 int n_users, int d, int i_pad, int parts,
+                 cudaStream_t stream) {
+  const size_t smem = Sweep::smem_bytes<RESIDENT>(d);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_sweep_kernel<LAYOUT, RESIDENT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n_users + Sweep::TU - 1) / Sweep::TU, parts);
+  fused_sweep_kernel<LAYOUT, RESIDENT><<<grid, Sweep::THREADS, smem, stream>>>(
+      users, items_t, excl, out_v, out_i, out_g, n_users, d, i_pad, parts);
+  return (int)cudaGetLastError();
+}
+
+template <int LAYOUT>
+int launch_sweep(const float* users, const float* items_t,
+                 const int8_t* excl, float* out_v, int* out_i, float* out_g,
+                 int n_users, int d, int i_pad, int parts,
+                 cudaStream_t stream) {
+  return Sweep::resident(d)
+             ? launch_sweep<LAYOUT, true>(users, items_t, excl, out_v, out_i,
+                                          out_g, n_users, d, i_pad, parts,
+                                          stream)
+             : launch_sweep<LAYOUT, false>(users, items_t, excl, out_v, out_i,
+                                           out_g, n_users, d, i_pad, parts,
+                                           stream);
 }
 
 }  // namespace
 
+// The number of item ranges coldrec_fused_sweep splits a sweep of n_users
+// into on the current device (>= 1), or -1 on a CUDA error.
+extern "C" int coldrec_fused_sweep_parts(int n_users, int d, int i_pad) {
+  if (n_users <= 0 || d <= 0 || i_pad < LANES) return 1;
+  const int groups = i_pad / LANES;
+  const int parts =
+      Sweep::resident(d)
+          ? choose_parts<Sweep>(fused_sweep_kernel<kRows16, true>,
+                                Sweep::smem_bytes<true>(d), n_users, groups)
+          : choose_parts<Sweep>(fused_sweep_kernel<kRows16, false>,
+                                Sweep::smem_bytes<false>(d), n_users, groups);
+  return parts > 0 ? parts : -1;
+}
+
 // Launches on `stream` (PyTorch's current stream); allocates nothing and
-// does not synchronise. Returns cudaGetLastError() after the launch.
+// does not synchronise. With parts == 1 the outputs are cand_v, cand_i and
+// ghost; with parts > 1 they are the parts' scratch, (parts, B, 1024) x2 and
+// (parts, B, 128), for coldrec_merge_parts. Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for arguments outside the
+// contract).
 extern "C" int coldrec_fused_sweep(const void* users, const void* items_t,
-                                   const void* excl, void* cand_v,
-                                   void* cand_i, void* ghost, int n_users,
-                                   int d, int i_pad, void* stream) {
+                                   const void* excl, void* out_v, void* out_i,
+                                   void* out_g, int n_users, int d, int i_pad,
+                                   int parts, void* stream) {
+  if (d <= 0 || i_pad % LANES) return (int)cudaErrorInvalidValue;
   if (n_users <= 0 || i_pad <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)TILE_U * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_sweep_kernel<TILE_U>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (parts < 1 || parts > i_pad / LANES || parts > 65535) {
+    return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((n_users + TILE_U - 1) / TILE_U);
-  fused_sweep_kernel<TILE_U><<<grid, LANES, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(users), static_cast<const float*>(items_t),
-      static_cast<const int8_t*>(excl), static_cast<float*>(cand_v),
-      static_cast<int*>(cand_i), static_cast<float*>(ghost), n_users, d,
-      i_pad);
+  const float* u = static_cast<const float*>(users);
+  const float* it = static_cast<const float*>(items_t);
+  const int8_t* ex = static_cast<const int8_t*>(excl);
+  float* ov = static_cast<float*>(out_v);
+  int* oi = static_cast<int*>(out_i);
+  float* og = static_cast<float*>(out_g);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (reinterpret_cast<uintptr_t>(items_t) % 16 == 0) {
+    return launch_sweep<kRows16>(u, it, ex, ov, oi, og, n_users, d, i_pad,
+                                 parts, s);
+  }
+  return launch_sweep<kRows4>(u, it, ex, ov, oi, og, n_users, d, i_pad, parts,
+                              s);
+}
+
+// Fold `parts` part outputs of coldrec_fused_sweep into cand_v, cand_i and
+// ghost. Launches on `stream`, allocates nothing, does not synchronise.
+extern "C" int coldrec_merge_parts(const void* part_v, const void* part_i,
+                                   const void* part_g, void* cand_v,
+                                   void* cand_i, void* ghost, int n_users,
+                                   int parts, void* stream) {
+  if (parts < 1) return (int)cudaErrorInvalidValue;
+  if (n_users <= 0) return (int)cudaSuccess;
+  merge_parts_kernel<<<n_users, LANES, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+      static_cast<const float*>(part_g), static_cast<float*>(cand_v),
+      static_cast<int*>(cand_i), static_cast<float*>(ghost), n_users, parts);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("retrieval.cu", "exp_retrieval_kernels.cu", "exp_multiacc.cu",
            "exp_blockskip.cu")
-HEADERS = ("sweep_common.cuh",)
+HEADERS = ("sweep_common.cuh", "sweep_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -112,19 +112,21 @@ def build() -> BuildResult:
     return BuildResult(out, time.perf_counter() - t0, "\n".join(reports))
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """The built library with every function's argtypes and restype set."""
-    lib = ctypes.CDLL(str(build().path))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set every entry point's argtypes and restype on a loaded library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     signatures = {
         # pointers, then ints, then the stream
-        "coldrec_fused_sweep": [vp] * 6 + [ci] * 3 + [vp],
-        "coldrec_dot_sweep": [vp] * 3 + [ci] * 4 + [vp],
+        "coldrec_fused_sweep": [vp] * 6 + [ci] * 4 + [vp],
+        "coldrec_merge_parts": [vp] * 6 + [ci] * 2 + [vp],
+        "coldrec_dot_sweep": [vp] * 4 + [ci] * 5 + [vp],
         "coldrec_stream_sweep": [vp] * 6 + [ci] * 4 + [vp],
         "coldrec_multiacc_sweep": [vp] * 6 + [ci] * 5 + [vp],
         "coldrec_skip_sweep": [vp] * 7 + [ci] * 6 + [vp],
     }
+    # the item ranges a sweep is split into: (n_users, d, i_pad) -> parts
+    for name in ("coldrec_fused_sweep_parts", "coldrec_dot_sweep_parts"):
+        signatures[name] = [ci] * 3
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -132,6 +134,25 @@ def load_library() -> ctypes.CDLL:
     lib.coldrec_error_string.argtypes = [ci]
     lib.coldrec_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The built library with every function's argtypes and restype set."""
+    return bind(ctypes.CDLL(str(build().path)))
+
+
+def sweep_parts(name: str, device: torch.device, n_users: int, d: int,
+                i_pad: int) -> int:
+    """The number of item ranges the library's ``name`` (a
+    ``*_sweep_parts`` function) splits a sweep of ``n_users`` into on
+    ``device``: enough blocks to fill every SM."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        parts = getattr(lib, name)(n_users, d, i_pad)
+    if parts < 1:
+        raise RuntimeError(f"{name} failed: a CUDA error on {device}")
+    return parts
 
 
 def launch(name: str, device: torch.device, *args) -> None:

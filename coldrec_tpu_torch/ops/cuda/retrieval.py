@@ -22,9 +22,21 @@ rated items are rejected, a row whose max ghost is below theta, and where no
 tie crosses the cut, holds the exact top-k; every other row is recomputed by
 the exact ``masked_topk`` path in bounded chunks.
 
-``fused_sweep`` launches the kernel for CUDA tensors and counts each launch
-in ``fused_sweep.launches``; for CPU tensors it computes the plain version
-``fused_sweep_reference``. It never falls back from a CUDA tensor.
+A score that is NaN never enters a slot or a ghost (the TPU kernel's
+strict compares drop it the same way); nor does one at or below
+``INIT_NEG``. Unfilled slots hold (``INIT_NEG``, 0).
+
+The kernel splits the item range into parts on 128-item boundaries, as
+many as fill the card's SMs for the batch (``sweep_parts``), and a second
+kernel merges the parts' slots (``merge_parts``): per (user, class) the
+sorted top-SLOTS of the union, and as ghost the max of the parts' ghosts
+and of the values the merge drops.
+
+``fused_sweep`` and ``merge_parts`` launch their kernels for CUDA tensors
+and count each launch in ``<wrapper>.launches`` (``fused_sweep`` once per
+sweep); for CPU tensors they compute the plain versions
+``fused_sweep_reference`` and ``merge_parts_reference``. They never fall
+back from a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ import torch
 
 from ...device import resolve_device
 from ...runtime.eval import exact_scores, masked_topk
-from .build import launch
+from .build import launch, sweep_parts
 
 NEG = -10e8  # reference mask value (BaseRecommender.py:177-180)
 INIT_NEG = -4e9  # below NEG: masked items still rank above "nothing seen"
@@ -95,13 +107,16 @@ def fused_sweep(
         raise ValueError(f"no retrieval kernel for device {users.device}")
     b, d = users.shape
     i_pad = items_t.shape[1]
-    cand_v, cand_i, ghost = empty_candidates(b, users.device)
+    parts = sweep_parts("coldrec_fused_sweep_parts", users.device, b, d,
+                        i_pad)
+    # one part writes the result; more write (parts, B, ...) scratch
+    out = tuple(t.view(parts, b, t.shape[1]) if parts > 1 else t
+                for t in empty_candidates(parts * b, users.device))
     launch("coldrec_fused_sweep", users.device,
            users.data_ptr(), items_t.data_ptr(), excl.data_ptr(),
-           cand_v.data_ptr(), cand_i.data_ptr(), ghost.data_ptr(),
-           b, d, i_pad)
+           *(t.data_ptr() for t in out), b, d, i_pad, parts)
     fused_sweep.launches += 1
-    return cand_v, cand_i, ghost
+    return out if parts == 1 else merge_parts(*out)
 
 
 fused_sweep.launches = 0
@@ -115,7 +130,9 @@ def fused_sweep_reference(
     """Plain PyTorch version of the kernel's contract, in user chunks:
     score (exact fp32), mask, view as (B, I_pad/128, 128) lane classes, a
     stable descending sort per class (ties: lowest id first), the top
-    SLOTS as candidates and the next value as the ghost."""
+    SLOTS as candidates and the next value as the ghost. NaN scores sort
+    last as -inf, and values at or below INIT_NEG fill no slot and no
+    ghost, as in the kernel."""
     b = users.shape[0]
     groups = items_t.shape[1] // LANES
     dev = users.device
@@ -129,14 +146,95 @@ def fused_sweep_reference(
     for s in range(0, b, REFERENCE_CHUNK):
         e = min(b, s + REFERENCE_CHUNK)
         z = exact_scores(users[s:e], items_t.T).masked_fill(excluded, NEG)
+        z = z.masked_fill(z.isnan(), -float("inf"))
         v, g = z.view(e - s, groups, LANES).sort(
             dim=1, descending=True, stable=True
         )
-        cand_v[s:e, :top] = v[:, :top]
-        cand_i[s:e, :top] = (g[:, :top] * LANES + lane).to(torch.int32)
+        keep = v[:, :top] > INIT_NEG
+        cand_v[s:e, :top] = torch.where(keep, v[:, :top], INIT_NEG)
+        cand_i[s:e, :top] = torch.where(
+            keep, g[:, :top] * LANES + lane, 0).to(torch.int32)
         if groups > SLOTS:
-            ghost[s:e] = v[:, SLOTS]
+            ghost[s:e] = v[:, SLOTS].clamp_min(INIT_NEG)
     return cand_v.view(b, CANDIDATES), cand_i.view(b, CANDIDATES), ghost
+
+
+def part_bounds(groups: int, parts: int):
+    """The kernel's split of ``groups`` item groups into ``parts`` ranges:
+    part p covers groups [bounds[p], bounds[p + 1])."""
+    return [groups * p // parts for p in range(parts + 1)]
+
+
+def sweep_parts_reference(users, items_t, excl, parts: int):
+    """Plain per-part sweeps, stacked as the kernel's scratch: each part
+    of ``part_bounds`` swept by ``fused_sweep_reference`` with its ids
+    made global (unfilled slots keep id 0)."""
+    bounds = part_bounds(items_t.shape[1] // LANES, parts)
+    outs = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        cols = slice(lo * LANES, hi * LANES)
+        cv, ci, gh = fused_sweep_reference(
+            users, items_t[:, cols].contiguous(), excl[cols])
+        outs.append((cv, torch.where(cv > INIT_NEG, ci + lo * LANES, ci), gh))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def _check_parts(part_v, part_i, part_g):
+    if part_v.dim() != 3 or part_v.shape[2] != CANDIDATES:
+        raise ValueError("part_v must be (parts, B, 1024)")
+    p, b, _ = part_v.shape
+    if part_i.shape != part_v.shape or tuple(part_g.shape) != (p, b, LANES):
+        raise ValueError("part_i (parts, B, 1024), part_g (parts, B, 128)")
+    if (part_v.dtype, part_i.dtype, part_g.dtype) != (
+            torch.float32, torch.int32, torch.float32):
+        raise TypeError("merge_parts takes f32 values, i32 ids, f32 ghosts")
+    if not (part_v.device == part_i.device == part_g.device):
+        raise ValueError("the parts must be on one device")
+    if not (part_v.is_contiguous() and part_i.is_contiguous()
+            and part_g.is_contiguous()):
+        raise ValueError("merge_parts takes contiguous tensors")
+
+
+def merge_parts(part_v, part_i, part_g):
+    """Fold per-part sweeps ((parts, B, 1024) x2, (parts, B, 128), the
+    parts in increasing item order) into one (cand_v, cand_i, ghost)."""
+    _check_parts(part_v, part_i, part_g)
+    dev = part_v.device
+    if dev.type == "cpu":
+        return merge_parts_reference(part_v, part_i, part_g)
+    if dev.type != "cuda":
+        raise ValueError(f"no merge kernel for device {dev}")
+    parts, b, _ = part_v.shape
+    out = empty_candidates(b, dev)
+    launch("coldrec_merge_parts", dev, part_v.data_ptr(), part_i.data_ptr(),
+           part_g.data_ptr(), *(t.data_ptr() for t in out), b, parts)
+    merge_parts.launches += 1
+    return out
+
+
+merge_parts.launches = 0
+
+
+def merge_parts_reference(part_v, part_i, part_g):
+    """Plain version of the merge: per (user, class) a stable descending
+    sort of the parts' slots in part order (a later part's ids are larger,
+    so ties keep the lowest id), the top SLOTS (unfilled: (INIT_NEG, 0)),
+    and the max of the parts' ghosts and of the best value left out."""
+    parts, b, _ = part_v.shape
+    v = part_v.view(parts, b, SLOTS, LANES).transpose(0, 1).reshape(
+        b, parts * SLOTS, LANES)
+    i = part_i.view(parts, b, SLOTS, LANES).transpose(0, 1).reshape(
+        b, parts * SLOTS, LANES)
+    sv, order = v.sort(dim=1, descending=True, stable=True)
+    si = i.gather(1, order)
+    keep = sv[:, :SLOTS] > INIT_NEG
+    cand_v = torch.where(keep, sv[:, :SLOTS], INIT_NEG)
+    cand_i = torch.where(keep, si[:, :SLOTS], 0).to(torch.int32)
+    ghost = part_g.amax(dim=0)
+    if parts > 1:
+        ghost = torch.maximum(ghost, sv[:, SLOTS])
+    return (cand_v.reshape(b, CANDIDATES).contiguous(),
+            cand_i.reshape(b, CANDIDATES).contiguous(), ghost)
 
 
 def _resolve(cand_v, cand_i, ghost, rated, k: int):

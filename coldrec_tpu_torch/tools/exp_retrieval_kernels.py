@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.cuda.build import launch
+from ..ops.cuda.build import launch, sweep_parts
 from ..ops.cuda.retrieval import (
     CANDIDATES, INIT_NEG, LANES, NEG, SLOTS, _check_sweep_inputs,
     _round_up, empty_candidates, fused_sweep,
@@ -97,8 +97,14 @@ def dot_sweep(users: torch.Tensor, items: torch.Tensor,
     b, d = users.shape
     i_pad = items.shape[1] if transposed else items.shape[0]
     out = torch.empty((b, LANES), dtype=torch.float32, device=users.device)
+    parts = sweep_parts("coldrec_dot_sweep_parts", users.device, b, d,
+                        i_pad)
+    scratch = (torch.empty((parts, b, LANES), dtype=torch.float32,
+                           device=users.device) if parts > 1 else None)
     launch("coldrec_dot_sweep", users.device, users.data_ptr(),
-           items.data_ptr(), out.data_ptr(), b, d, i_pad, int(transposed))
+           items.data_ptr(), out.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), b, d, i_pad,
+           int(transposed), parts)
     dot_sweep.launches += 1
     return out
 

@@ -81,6 +81,71 @@ def test_kernel_integer_tables_exact(cuda):
     assert torch.equal(cv, rv) and torch.equal(ci, ri) and torch.equal(gh, rg)
 
 
+# B changes the part count; d the depth chunks, and at 1200 the user tile
+# no longer stays resident in shared memory (it is staged step by step)
+SPLIT_SHAPES = ([(b, 16) for b in (1, 7, 130, 512, 2049)]
+                + [(130, d) for d in (1, 3, 64, 200, 1200)])
+
+
+def _int_sweep_inputs(device, n_users, n_items, d, seed, nan_items=0):
+    rng = np.random.default_rng(seed)
+    ue = rng.integers(-3, 4, (n_users, d)).astype(np.float32)
+    ie = rng.integers(-3, 4, (n_items, d)).astype(np.float32)
+    if nan_items:
+        ie[rng.choice(n_items, nan_items, replace=False)] = np.nan
+        ie[[1, 129, 257]] = np.nan  # several in one lane class
+    excluded = rng.random(n_items) < 0.2
+    users = torch.as_tensor(ue, device=device)
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie, device=device),
+                                       torch.as_tensor(excluded, device=device))
+    return users, items_t, excl_row
+
+
+@pytest.mark.parametrize("n_users,d", SPLIT_SHAPES)
+def test_kernel_split_integer_tables_exact(cuda, n_users, d):
+    """The part count changes with B (and the depth chunks with d); on
+    integer tables the merged kernel output equals the plain version's bit
+    for bit."""
+    users, items_t, excl_row = _int_sweep_inputs(cuda, n_users, 3000, d,
+                                                 seed=n_users + d)
+    before = tret.fused_sweep.launches
+    got = tret.fused_sweep(users, items_t, excl_row)
+    torch.cuda.synchronize(cuda)
+    assert tret.fused_sweep.launches == before + 1
+    ref = tret.fused_sweep_reference(users, items_t, excl_row)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_kernel_nan_items_match_plain(cuda):
+    """NaN item rows never enter a slot or a ghost, on the card as in the
+    plain version."""
+    users, items_t, excl_row = _int_sweep_inputs(cuda, 70, 5000, 16, seed=9,
+                                                 nan_items=200)
+    got = tret.fused_sweep(users, items_t, excl_row)
+    ref = tret.fused_sweep_reference(users, items_t, excl_row)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert not bool(got[0].isnan().any() or got[2].isnan().any())
+
+
+@pytest.mark.parametrize("parts", [2, 3, 8])
+def test_merge_kernel_matches_plain(cuda, parts):
+    users, items_t, excl_row = _int_sweep_inputs(cuda, 37, 3000, 8, seed=4,
+                                                 nan_items=50)
+    pv, pi, pg = tret.sweep_parts_reference(users, items_t, excl_row, parts)
+    before = tret.merge_parts.launches
+    got = tret.merge_parts(pv, pi, pg)
+    torch.cuda.synchronize(cuda)
+    assert tret.merge_parts.launches == before + 1
+    ref = tret.merge_parts_reference(pv, pi, pg)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for g, r in zip(got, tret.fused_sweep_reference(users, items_t,
+                                                    excl_row)):
+        assert torch.equal(g, r)
+
+
 def test_retrieval_topk_card_equals_cpu(cuda):
     n_users = 2 * tret.USER_CHUNK + 5
     ue, ie, excluded, rated = _tables(cuda, n_users, 4000, 16, seed=2,
@@ -166,6 +231,17 @@ def _assert_same(got, ref):
                                                (9, 256, 130)])
 def test_dot_kernel_matches_plain(cuda, transposed, n_users, n_items, d):
     users, items, items_t, _ = _variant_tables(cuda, n_users, n_items, d, 5)
+    tab = items_t if transposed else items
+    got = _launched(terk.dot_sweep,
+                    lambda: terk.dot_sweep(users, tab, transposed))
+    _assert_same([got], [terk.dot_sweep_reference(users, tab, transposed)])
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("n_users,d", SPLIT_SHAPES)
+def test_dot_kernel_split_matches_plain(cuda, transposed, n_users, d):
+    users, items, items_t, _ = _variant_tables(cuda, n_users, 2944, d,
+                                               n_users + d)
     tab = items_t if transposed else items
     got = _launched(terk.dot_sweep,
                     lambda: terk.dot_sweep(users, tab, transposed))

@@ -75,9 +75,15 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
         "r = cs.kernel_vs_plain('cpu', 48, 2000, d=16)\n"
         "assert r['max_abs_err'] == 0.0 and r['rows'] == 48, r\n"
         "r = cs.kernel_vs_plain('cpu', 16, 300, d=8, k=10, r=4)\n"
+        "r = cs.kernel_ml('cpu', 40, 1000)\n"
+        "assert r == {'max_abs_err': 0.0, 'merge_err': 0.0}, r\n"
+        "r = cs.kernel_int('cpu', n_items=3000, sizes=(40, 16))\n"
+        "assert r == {'fused_sweep': 0.0, 'merge_parts': 0.0}, r\n"
         "n = cs.slice_run('cpu', 300, 2000, 8000, d=16, n_requests=2,\n"
         "                 request_size=32)\n"
-        "assert n == 0, n\n"
+        "assert n == {'fused_sweep': 0, 'merge_parts': 0}, n\n"
+        "t = cs.time_merge('cpu', 16, 2000, d=8, reps=1)\n"
+        "assert t['bound_by'] == 'bytes' and t['parts'] == 4, t\n"
         "v = cs.variants_run('cpu', 32, 4096, d=8, blocks=(128, 256),\n"
         "                    tiles=(8, 16), check_users=16,\n"
         "                    check_items=2048)\n"
@@ -93,6 +99,8 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "REHEARSAL OK" in proc.stdout
     assert "[all setting]" in proc.stdout
+    assert "host split (all setting" in proc.stdout
+    assert "merge_parts bit-equal at 4 parts" in proc.stdout
     assert "falling table tile_u=16 floor=rv[0]" in proc.stdout
     blocked = _run_blocked("import jax\n", tmp_path)
     assert blocked.returncode != 0  # the block really holds
@@ -138,6 +146,7 @@ def test_entry_points_default_to_the_card():
     from coldrec_tpu_torch.tools import exp_blockskip as ebs
     from coldrec_tpu_torch.tools import exp_multiacc as ema
     from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
+    from coldrec_tpu_torch.tools import tile_shapes
 
     data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
     ue = np.zeros((data.user_num, 4), np.float32)
@@ -155,6 +164,7 @@ def test_entry_points_default_to_the_card():
         lambda: ebs.check_exact(ue, ie, np.zeros((data.user_num, 1)), 8, 128,
                                 0),
         lambda: ebs.bench(ebs.skip_sweep, ue, ie, 8, 128),
+        lambda: tile_shapes.main(["--users", "8"]),
         lambda: resolve_device(),
         lambda: MF(10, 10, 4),
         lambda: MF.from_jax_params({"user_emb": ue, "item_emb": ie}),

@@ -158,3 +158,83 @@ def test_lane_collision_triggers_exact_fallback(rng):
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(tv, jv)
     assert ti[0, :n_plant].tolist() == plant
+
+
+def _nan_case(nan_items, n_users=8, n_items=1024, d=8, seed=11):
+    rng = np.random.default_rng(seed)
+    ue = rng.standard_normal((n_users, d)).astype(np.float32)
+    ie = rng.standard_normal((n_items, d)).astype(np.float32)
+    ie[nan_items] = np.nan
+    rated = np.full((n_users, 1), n_items, np.int32)
+    return ue, ie, rated, np.zeros(n_items, bool)
+
+
+@pytest.mark.parametrize("nan_items", [[300], [5, 133, 261, 389, 517, 901]],
+                         ids=["one", "one-lane-class"])
+def test_nan_items_never_ranked_as_jax_kernel_path(nan_items):
+    """A NaN item row scores NaN for every user: the JAX kernel path drops
+    it, and so must the port's plain sweep (no slot, no ghost)."""
+    ue, ie, rated, excluded = _nan_case(nan_items)
+    jv, ji = _jax(ue, ie, rated, excluded, 5, block_i=256)
+    tv, ti = _port(ue, ie, rated, excluded, 5)
+    assert not set(np.asarray(ji).ravel().tolist()) & set(nan_items)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tv, jv)
+    users = torch.as_tensor(ue)
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie),
+                                       torch.as_tensor(excluded))
+    cv, ci, gh = tret.fused_sweep(users, items_t, excl_row)
+    assert not bool(cv.isnan().any() or gh.isnan().any())
+    assert not set(ci[cv > tret.INIT_NEG].tolist()) & set(nan_items)
+
+
+def _split_tables(kind, seed=0):
+    """Integer tables (every sum exact) with excluded items and pad items:
+    random, one all-tie block of items, few items (classes with fewer than
+    9 items in a part), and NaN item rows."""
+    rng = np.random.default_rng(seed)
+    n_users, n_items, d = 13, (300 if kind == "few" else 2900), 6
+    ue = rng.integers(-3, 4, (n_users, d)).astype(np.float32)
+    ie = rng.integers(-3, 4, (n_items, d)).astype(np.float32)
+    if kind == "ties":
+        ie[:1500] = 1.0
+    if kind == "nan":
+        ie[rng.choice(n_items, 60, replace=False)] = np.nan
+        ie[[7, 135, 263, 391]] = np.nan  # several in one lane class
+    excluded = rng.random(n_items) < 0.2
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie),
+                                       torch.as_tensor(excluded))
+    return torch.as_tensor(ue), items_t, excl_row
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "few", "nan"])
+@pytest.mark.parametrize("parts", [1, 2, 3, 8])
+def test_split_and_merge_equal_one_sweep(kind, parts):
+    """Sweeping each part of the item range with the plain version and
+    merging the parts gives the one-sweep plain output bit for bit."""
+    users, items_t, excl_row = _split_tables(kind)
+    ref = tret.fused_sweep_reference(users, items_t, excl_row)
+    got = tret.merge_parts(*tret.sweep_parts_reference(
+        users, items_t, excl_row, parts))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert tret.merge_parts.launches == 0  # the CPU runs the plain merge
+
+
+def test_part_bounds_cover_the_groups():
+    for groups, parts in ((1, 1), (10, 3), (2111, 8), (16, 16)):
+        b = tret.part_bounds(groups, parts)
+        assert b[0] == 0 and b[-1] == groups and len(b) == parts + 1
+        assert all(hi > lo for lo, hi in zip(b[:-1], b[1:]))
+
+
+def test_merge_parts_refuses_bad_input():
+    v = torch.zeros((2, 3, tret.CANDIDATES))
+    i = torch.zeros((2, 3, tret.CANDIDATES), dtype=torch.int32)
+    g = torch.zeros((2, 3, tret.LANES))
+    with pytest.raises(ValueError):
+        tret.merge_parts(v, i, g[:1])
+    with pytest.raises(TypeError):
+        tret.merge_parts(v, i.long(), g)
+    with pytest.raises(ValueError, match="no merge kernel"):
+        tret.merge_parts(v.to("meta"), i.to("meta"), g.to("meta"))
