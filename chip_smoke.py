@@ -13,7 +13,9 @@ Phases, each printed with its seconds:
               max ghost, and the final top-k ids equal the exact plain
               path's on every row whose top-(k+1) scores are separated by
               more than ``GAP_REL``; kernel-ml adds an integer table with
-              NaN item rows (bit-equal, no NaN in a slot or a ghost);
+              NaN item rows (bit-equal, NaN at the same places; no NaN in a
+              slot, and the ghost NaN exactly in the lane classes of NaN
+              items that are not excluded);
   4. kernel-int  integer tables at 2048 and at 512 users x 270,170 items:
               the sweep (split into parts and merged at 512) bit for bit
               equal to its plain version, and the merge kernel equal to its
@@ -40,7 +42,11 @@ Phases, each printed with its seconds:
   7. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep and the merge): the
               kernel, its plain version and one library yardstick, beside
-              the least time the card could take.
+              the least time the card could take; timing-variants first
+              logs each kernel's registers and spill bytes (the build's
+              ``-Xptxas -v``), the skip kernel's resident clusters per
+              layout, and every P and tile_u time (tile_u with both CTA
+              tiles).
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -78,6 +84,7 @@ from coldrec_tpu_torch.runtime.trainer import SETTING_SPLITS, three_way_test
 from coldrec_tpu_torch.tools import exp_blockskip as ebs
 from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
+from coldrec_tpu_torch.tools import tile_shapes
 
 BUDGET_S = 600.0  # the whole run, half of the 1200 s it may take at most
 D = 64  # MF emb_size (BASELINE default)
@@ -245,17 +252,33 @@ def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
     return {"max_abs_err": err, "rows": rows, "id_equal_rows": equal}
 
 
+def same(got, ref) -> bool:
+    """Bit for bit equal, NaN equal to NaN at the same places
+    (``torch.equal`` is False on any NaN)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, ref)
+    nan = got.isnan()
+    return torch.equal(nan, ref.isnan()) and torch.equal(got[~nan],
+                                                         ref[~nan])
+
+
 def hold_equal(name, got, ref):
-    """Raise unless every output equals its plain version bit for bit;
-    returns the max abs difference (0.0)."""
+    """Raise unless every output equals its plain version bit for bit
+    (NaN at the same places); returns the max abs difference over the
+    numbers (0.0)."""
     err = 0.0
     for g, r in zip(got, ref):
-        if not torch.equal(g, r):
-            diff = (g.double() - r.double()).abs()
+        diff = (g.double() - r.double()).abs()
+        diff = diff[diff == diff]
+        worst = float(diff.max()) if diff.numel() else 0.0
+        if not same(g, r):
             raise AssertionError(
                 f"{name}: kernel differs from its plain version (max abs "
-                f"err {float(diff[diff == diff].max())})")
-        err = max(err, float((g.double() - r.double()).abs().max()))
+                f"err {worst}, NaN places equal: "
+                f"{torch.equal(g.isnan(), r.isnan())})")
+        err = max(err, worst)
     return err
 
 
@@ -271,7 +294,8 @@ def sweep_parts_on(device, n_users, d, i_pad):
 def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
     """``fused_sweep`` bit for bit against its plain version on integer
     tables (every sum exact, many ties) with 20% of the items excluded and,
-    with ``nan_items``, that many NaN item rows (three in one lane class);
+    with ``nan_items``, that many NaN item rows (three in one lane class),
+    whose lane classes' ghosts must be NaN;
     then the merge kernel against its plain version on the plain per-part
     sweeps, at the kernel's part count for this batch (at least 2)."""
     device = torch.device(device)
@@ -290,8 +314,13 @@ def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
     got = fused_sweep(users, items_t, excl_row)
     err = hold_equal("fused_sweep", got,
                      fused_sweep_reference(users, items_t, excl_row))
-    if bool(got[0].isnan().any() or got[2].isnan().any()):
-        raise AssertionError("a NaN score reached a slot or a ghost")
+    if bool(got[0].isnan().any()):
+        raise AssertionError("a NaN score reached a slot")
+    nan_class = torch.zeros(LANES, dtype=torch.bool, device=device)
+    live_nan = nan_rows[~excluded[nan_rows]]
+    nan_class[torch.as_tensor(live_nan % LANES, device=device)] = True
+    if not torch.equal(got[2].isnan(), nan_class.expand_as(got[2])):
+        raise AssertionError("the NaN ghosts are not the NaN items' classes")
     # an excluded item scores NEG, NaN or not; any other NaN item is dropped
     filled = got[1][got[0] > INIT_NEG].cpu().numpy()
     if np.isin(filled, nan_rows[~excluded[nan_rows]]).any():
@@ -302,8 +331,9 @@ def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
                       merge_parts_reference(pv, pi, pg))
     _sync(device)
     log(f"  integer table {n_users}x{n_items} d={d}, {len(nan_rows)} NaN "
-        f"items: fused_sweep bit-equal to its plain version; merge_parts "
-        f"bit-equal at {parts} parts")
+        f"items ({int(nan_class.sum())} NaN ghost classes): fused_sweep "
+        f"bit-equal to its plain version; merge_parts bit-equal at {parts} "
+        f"parts")
     return {"fused_sweep": err, "merge_parts": merr}
 
 
@@ -637,13 +667,37 @@ def sweep_bound(flops, bytes_moved):
                                  else "bytes")
 
 
+def kernel_registers(ptxas: str) -> None:
+    """Log registers / spill-store bytes of every instance of each kernel
+    from the build's ``nvcc -Xptxas -v`` report (empty when the library
+    was already built)."""
+    if not ptxas:
+        log("  registers: not reported (library already built)")
+        return
+    for name in ("fused_sweep_kernel", "merge_parts_kernel",
+                 "dot_sweep_kernel", "stream_sweep_kernel",
+                 "multiacc_sweep_kernel", "skip_sweep_kernel"):
+        log(f"  registers/spill bytes {name}: "
+            f"{tile_shapes.registers(ptxas, name)}")
+
+
 def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
                   r=RATED_WIDTH, blocks=VAR_BLOCKS, tiles=VAR_TILES,
-                  p_row=4, reps=10, seed=0):
+                  p_row=4, reps=10, seed=0, ptxas=""):
     """Phase 6 for the variants: per kernel, ms per sweep (CUDA events;
     the host clock on the CPU), its plain version's, a library yardstick's
-    and the bound, on N(0,1) tables with 20% of the items excluded."""
+    and the bound, on N(0,1) tables with 20% of the items excluded. Before
+    the rows: every P and tile_u time, the skip kernel's resident clusters
+    per layout, and each kernel's registers and spills."""
     device = torch.device(device)
+    kernel_registers(ptxas)
+    if device.type == "cuda":
+        for tile_u in tiles:
+            for cta in ebs.CTA_TILES:
+                lay = ebs.skip_layout(tile_u, n_users, cta)
+                n = ebs.max_active_clusters(device, d, tile_u, n_users, cta)
+                log(f"  skip_sweep layout tile_u={tile_u} {lay}: {n} "
+                    "clusters resident at once")
     small, big = blocks
     rng = np.random.default_rng(seed)
     users = torch.as_tensor(
@@ -702,10 +756,13 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
         "work")
     skip = {}
     for tile_u in tiles:
-        skip[tile_u] = ms(lambda: ebs.skip_sweep(users, items_t, excl, tile_u,
-                                                 big, 0), 2)
-        log(f"  skip_sweep tile_u={tile_u} floor=rv[0] block_i={big}: "
-            f"{skip[tile_u]:.3f} ms")
+        for cta in ebs.CTA_TILES:
+            t_ms = ms(lambda: ebs.skip_sweep(users, items_t, excl, tile_u,
+                                             big, 0, cta), 2)
+            if cta == ebs.skip_layout(tile_u, n_users).cta_tile:
+                skip[tile_u] = t_ms
+            log(f"  skip_sweep tile_u={tile_u} floor=rv[0] block_i={big} "
+                f"cta_tile={cta}: {t_ms:.3f} ms")
     tile_u = tiles[-1]
     row("skip_sweep", skip[tile_u],
         ms(lambda: skip_plain(users, items_t, excl, tile_u, big, 0), 1),
@@ -744,7 +801,8 @@ def main() -> int:
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}: {r['flops']:.3e} FLOP, {r['bytes']:.3e} B)")
     tm = time_merge(device)
-    tv = run_phase("timing-variants", time_variants, device)
+    tv = run_phase("timing-variants", time_variants, device,
+                   ptxas=built.ptxas)
 
     kernels = [{
         "name": "fused_sweep",

@@ -3,34 +3,139 @@
 // Replaces the Pallas kernel tools/exp_multiacc.py::_multiacc_kernel (:72,
 // with the merge _merge_two :49), launched by multiacc_sweep (:137,
 // pallas_call :142). Contract as in stream_sweep_kernel
-// (exp_retrieval_kernels.cu) plus P: inside each block of block_i items,
-// slice s (the items base + s*128 + c) feeds accumulator group s % P, and
-// the P groups' top-2 chains are merged pairwise ((0,1), (2,3), ... then the
-// pairs' results, as the Pallas kernel's list reduction does) once per
-// block. The merge keeps the lower slice on a tie, so the result is bit for
-// bit that of the single chain (P = 1) and of stream_sweep_kernel.
+// (exp_retrieval_kernels.cu) plus P: inside each block of block_i items the
+// item slices feed P independent top-2 chains, and once per block the P
+// chains are merged pairwise ((0,1), (2,3), ... then the pairs' results, as
+// the Pallas kernel's list reduction does) with merge_two, which keeps the
+// lower slice on a tie; then m1 and m2 cascade into the 8 slots with the
+// TPU's strict `>`. The merge is exact for any split of a block's slices
+// into chains, each fed in increasing slice order, so the result is bit for
+// bit the single chain's (P = 1) and stream_sweep_kernel's. Here group g
+// (items g*128 .. g*128+127) feeds chain g % P, which is the Pallas
+// kernel's block-relative slice % P whenever block_i / 128 is a multiple of
+// P (every timed shape), and keeps the chain index a compile-time constant.
 //
 // What bounds it on an H100: the products, as for the stream sweep: at
 // B=2048, I_pad=270,336, d=64, 7.09e10 fp32 operations (1.058 ms at
 // 67 TFLOP/s) against ~88 MB of compulsory traffic (26 us at 3.35 TB/s).
 //
-// Design: the stream sweep's kernel (128 threads, thread c owns lane class c
-// for a tile of TU users, the user tile in shared memory) with its product
-// loop unchanged: each slice is scored by the same FFMA chains, and only
-// the top-2 chain is split into P independent ones, so P asks exactly how
-// much instruction-level parallelism the single chain was missing. P = 1
-// is the stream sweep's code. A thread holds 5*P chain registers and 17
-// slot registers per user, so the user tile shrinks where P grows: TU = 4
-// up to P = 4 and TU = 2 at P = 8 (the -Xptxas -v report in PERF.md shows
-// the registers and spills of each instance).
+// Design: the product loop of sweep_tile.cuh (the user tile resident in
+// shared memory, item groups staged by cp.async, a register tile per
+// thread), the one retrieval.cu's sweep runs on. Each thread owns its
+// (user, class) pairs for the whole walk: P chains (5P registers), the 8
+// slot values and the ghost in registers, the 8 slot ids in shared memory
+// (TileSlots: the ids move only at block ends). A block end may fall inside
+// a step (block_i 256 closes a block every 2 groups of an 8-group step):
+// the epilogue counts groups (BlockClock) and closes the block after the
+// group that ends it. The item range is not split: the strict cascade is
+// not a stable merge, so parts could not be merged bit for bit; the
+// parallelism comes from the users. The register tile shrinks where P
+// grows (MultiShape below; the build's -Xptxas -v report shows registers
+// and spills of each instance).
 #include "sweep_common.cuh"
+#include "sweep_tile.cuh"
 
 namespace {
 
 using namespace coldrec_exp;
+namespace tile = coldrec_tile;
 
-template <int P, int TU>
-__global__ void __launch_bounds__(LANES)
+// The tile of each P: users per block, and per thread RU users x RI items
+// of each of GS groups (GS a multiple of P, so group q of a step feeds
+// chain q % P).
+using MultiP1 = tile::Shape<16, 8, 1, 32, 8, 16, 2>;
+using MultiP2 = tile::Shape<16, 8, 1, 32, 4, 16, 3>;
+using MultiP4 = tile::Shape<8, 4, 1, 32, 8, 16, 2>;
+using MultiP8 = tile::Shape<4, 2, 1, 32, 8, 16, 2>;
+
+template <int P>
+struct MultiShape;
+template <>
+struct MultiShape<1> {
+  using S = MultiP1;
+};
+template <>
+struct MultiShape<2> {
+  using S = MultiP2;
+};
+template <>
+struct MultiShape<4> {
+  using S = MultiP4;
+};
+template <>
+struct MultiShape<8> {
+  using S = MultiP8;
+};
+
+template <class S, int P>
+struct MultiEpilogue {
+  static constexpr int RU = S::RU, RI = S::RI, GS = S::GS;
+  static_assert(GS % P == 0, "group q of a step feeds chain q % P");
+  const int8_t* __restrict__ excl;
+  int ig;
+  BlockClock clock;
+  TileSlots<S> slots;
+  Top2 t[RU][RI][P];
+  int8_t ex[GS][RI];
+
+  __device__ __forceinline__ void init_chains() {
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+#pragma unroll
+      for (int e = 0; e < RI; ++e) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) t[u][e][p].init();
+      }
+    }
+  }
+
+  __device__ __forceinline__ void begin(int q, int g) {
+#pragma unroll
+    for (int e = 0; e < RI; ++e) {
+      ex[q][e] = __ldg(excl + g * LANES + S::item(ig, e));
+    }
+  }
+
+  // merge each pair's P chains and cascade the block's top-2
+  __device__ __forceinline__ void close() {
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+#pragma unroll
+      for (int e = 0; e < RI; ++e) {
+#pragma unroll
+        for (int step = 1; step < P; step *= 2) {
+#pragma unroll
+          for (int q = 0; q + step < P; q += 2 * step) {
+            t[u][e][q] = merge_two(t[u][e][q], t[u][e][q + step]);
+          }
+        }
+        slots.insert(u, e, t[u][e][0], clock.base + S::item(ig, e));
+      }
+    }
+    init_chains();
+    clock.next_block();
+  }
+
+  __device__ __forceinline__ void step(int, int n,
+                                       const tile::Acc<S>& acc) {
+#pragma unroll
+    for (int q = 0; q < GS; ++q) {
+      if (q >= n) break;
+      const int s = clock.slice();
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+#pragma unroll
+        for (int e = 0; e < RI; ++e) {
+          t[u][e][q % P].push(ex[q][e] ? NEG : acc[q][u][e], s);
+        }
+      }
+      if (clock.tick()) close();
+    }
+  }
+};
+
+template <class S, int P, int LAYOUT>
+__global__ void __launch_bounds__(S::THREADS, 1)
 multiacc_sweep_kernel(const float* __restrict__ users,
                       const float* __restrict__ items_t,
                       const int8_t* __restrict__ excl,
@@ -38,83 +143,57 @@ multiacc_sweep_kernel(const float* __restrict__ users,
                       float* __restrict__ ghost, int n_users, int d,
                       int i_pad, int block_i) {
   extern __shared__ float4 smem4[];
-  float* su = reinterpret_cast<float*>(smem4);  // (d, TU)
-  const int c = threadIdx.x;
-  const int u0 = blockIdx.x * TU;
-  load_users(su, users, u0, TU, n_users, d, c, LANES);
-  __syncthreads();
+  float* smem = reinterpret_cast<float*>(smem4);
+  const tile::Tile tl{users, items_t, n_users, d, i_pad,
+                      (int)blockIdx.x * S::TU};
+  MultiEpilogue<S, P> epi;
+  epi.excl = excl;
+  epi.ig = S::ig();
+  epi.clock.init(block_i);
+  epi.slots.init(reinterpret_cast<int*>(
+      smem + S::TU * d + S::STAGES * S::template stage_floats<true>()));
+  epi.init_chains();
+  tile::sweep_walk<S, LAYOUT, true>(tl, 0, i_pad / LANES, smem, epi);
 
-  float rv[TU][SLOTS];
-  int ri[TU][SLOTS];
-  float gh[TU];
+  const int ug = S::ug();
 #pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    gh[u] = INIT_NEG;
+  for (int u = 0; u < S::RU; ++u) {
+    const int user = tl.u0 + S::user(ug, u);
+    if (user >= n_users) continue;
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      rv[u][s] = INIT_NEG;
-      ri[u][s] = 0;
-    }
-  }
-
-  const int slices = block_i / LANES;
-  for (int base = 0; base < i_pad; base += block_i) {
-    Top2 t[TU][P];
-#pragma unroll
-    for (int u = 0; u < TU; ++u) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) t[u][p].init();
-    }
-    for (int s0 = 0; s0 < slices; s0 += P) {
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const int s = s0 + p;
-        if (s < slices) {  // the same for every thread of the block
-          const int item = base + s * LANES + c;
-          float acc[TU];
-          dot_column<TU>(items_t + item, (size_t)i_pad, su, TU, 0, d, acc);
-          const bool ex = excl[item] != 0;
-#pragma unroll
-          for (int u = 0; u < TU; ++u) t[u][p].push(ex ? NEG : acc[u], s);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < TU; ++u) {
-#pragma unroll
-      for (int step = 1; step < P; step *= 2) {
-#pragma unroll
-        for (int q = 0; q + step < P; q += 2 * step) {
-          t[u][q] = merge_two(t[u][q], t[u][q + step]);
-        }
-      }
-      insert_block(rv[u], ri[u], gh[u], t[u][0], base + c);
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    if (u0 + u < n_users) {
-      store_slots(cand_v, cand_i, ghost, (size_t)(u0 + u), c, rv[u], ri[u],
-                  gh[u]);
+    for (int e = 0; e < S::RI; ++e) {
+      epi.slots.store(cand_v, cand_i, ghost, (size_t)user, u, e,
+                      S::item(epi.ig, e));
     }
   }
 }
 
-template <int P, int TU>
-int launch_multiacc(const void* users, const void* items_t, const void* excl,
-                    void* cand_v, void* cand_i, void* ghost, int n_users,
-                    int d, int i_pad, int block_i, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * TU * d;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(multiacc_sweep_kernel<P, TU>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n_users + TU - 1) / TU);
-  multiacc_sweep_kernel<P, TU><<<grid, LANES, smem, stream>>>(
-      static_cast<const float*>(users), static_cast<const float*>(items_t),
-      static_cast<const int8_t*>(excl), static_cast<float*>(cand_v),
-      static_cast<int*>(cand_i), static_cast<float*>(ghost), n_users, d,
-      i_pad, block_i);
+template <int P>
+int launch_multiacc(const float* users, const float* items_t,
+                    const int8_t* excl, float* cand_v, int* cand_i,
+                    float* ghost, int n_users, int d, int i_pad, int block_i,
+                    cudaStream_t stream) {
+  using S = typename MultiShape<P>::S;
+  const size_t smem = tile_smem<S>(d, 0);
+  if (smem == 0) return (int)cudaErrorInvalidValue;  // d too wide
+  const dim3 grid((n_users + S::TU - 1) / S::TU);
+  if (reinterpret_cast<uintptr_t>(items_t) % 16 == 0) {
+    const cudaError_t e =
+        allow_smem(multiacc_sweep_kernel<S, P, tile::kRows16>, smem);
+    if (e != cudaSuccess) return (int)e;
+    multiacc_sweep_kernel<S, P, tile::kRows16><<<grid, S::THREADS, smem,
+                                                 stream>>>(
+        users, items_t, excl, cand_v, cand_i, ghost, n_users, d, i_pad,
+        block_i);
+  } else {
+    const cudaError_t e =
+        allow_smem(multiacc_sweep_kernel<S, P, tile::kRows4>, smem);
+    if (e != cudaSuccess) return (int)e;
+    multiacc_sweep_kernel<S, P, tile::kRows4><<<grid, S::THREADS, smem,
+                                                stream>>>(
+        users, items_t, excl, cand_v, cand_i, ghost, n_users, d, i_pad,
+        block_i);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -122,8 +201,9 @@ int launch_multiacc(const void* users, const void* items_t, const void* excl,
 
 // Launches on `stream` (PyTorch's current stream), allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments outside the contract; P is one of
-// 1, 2, 4, 8).
+// (cudaErrorInvalidValue for arguments outside the contract: P is one of
+// 1, 2, 4, 8, and d at most what keeps the block's shared memory within
+// 227 KB: 560 at P = 1, more at the other P).
 extern "C" int coldrec_multiacc_sweep(const void* users, const void* items_t,
                                       const void* excl, void* cand_v,
                                       void* cand_i, void* ghost, int n_users,
@@ -133,20 +213,26 @@ extern "C" int coldrec_multiacc_sweep(const void* users, const void* items_t,
     return (int)cudaErrorInvalidValue;
   }
   if (n_users <= 0) return (int)cudaSuccess;
+  const float* u = static_cast<const float*>(users);
+  const float* it = static_cast<const float*>(items_t);
+  const int8_t* ex = static_cast<const int8_t*>(excl);
+  float* cv = static_cast<float*>(cand_v);
+  int* ci = static_cast<int*>(cand_i);
+  float* gh = static_cast<float*>(ghost);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (p_acc) {
     case 1:
-      return launch_multiacc<1, 4>(users, items_t, excl, cand_v, cand_i,
-                                   ghost, n_users, d, i_pad, block_i, s);
+      return launch_multiacc<1>(u, it, ex, cv, ci, gh, n_users, d, i_pad,
+                                block_i, s);
     case 2:
-      return launch_multiacc<2, 4>(users, items_t, excl, cand_v, cand_i,
-                                   ghost, n_users, d, i_pad, block_i, s);
+      return launch_multiacc<2>(u, it, ex, cv, ci, gh, n_users, d, i_pad,
+                                block_i, s);
     case 4:
-      return launch_multiacc<4, 4>(users, items_t, excl, cand_v, cand_i,
-                                   ghost, n_users, d, i_pad, block_i, s);
+      return launch_multiacc<4>(u, it, ex, cv, ci, gh, n_users, d, i_pad,
+                                block_i, s);
     case 8:
-      return launch_multiacc<8, 2>(users, items_t, excl, cand_v, cand_i,
-                                   ghost, n_users, d, i_pad, block_i, s);
+      return launch_multiacc<8>(u, it, ex, cv, ci, gh, n_users, d, i_pad,
+                                block_i, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -13,8 +13,10 @@
 //        ghost   (B, 128)    f32, per class the largest discarded value
 // Lane class c holds items c, c+128, c+256, ... Each class keeps its exact
 // sorted top-8 by (-value, id); unfilled slots hold (INIT_NEG, 0). A score
-// that is NaN or not above INIT_NEG never enters a slot or the ghost. Every
-// item that is not a candidate scores <= its class's ghost.
+// that is NaN or not above INIT_NEG never enters a slot; a NaN score makes
+// its class's ghost NaN for good (as the TPU kernel's jnp.maximum does), a
+// score not above INIT_NEG leaves the ghost as it is. Every item that is
+// not a candidate scores <= its class's ghost, unless that ghost is NaN.
 //
 // What bounds it on an H100: the products. At B=2048, I=270,170, d=64 the
 // sweep is 2*B*I*d = 7.1e10 fp32 operations (1.06 ms at 67 TFLOP/s outside
@@ -35,7 +37,7 @@
 // one block of 8 warps a SM. A score that beats the pair's 8th slot is
 // inserted behind its equals (items come in increasing id order, so an
 // incumbent keeps its place on a tie); anything else only goes into the
-// ghost with fmaxf, which drops NaN.
+// ghost with fmax_nan (one max.NaN, so a NaN score sticks).
 //
 // The item range is split into `parts` ranges on 128-item boundaries
 // (blockIdx.y), chosen by the launcher so that the blocks fill every SM
@@ -44,7 +46,8 @@
 // merge_parts_kernel folds them: per (user, class) the parts' slots go into
 // one sorted top-8 in part order (a later part's ids are all larger), and
 // the ghost is the max of the parts' ghosts and of every value the merge
-// drops, which is the 9th value of the whole class.
+// drops, which is the 9th value of the whole class (NaN where any part's
+// ghost is NaN).
 #include "sweep_tile.cuh"
 
 namespace {
@@ -101,12 +104,12 @@ struct TopEpilogue {
         for (int e = 0; e < RI; ++e) {
           const float v = ex[q][e] ? NEG : acc[q][u][e];
           if (v > rv[u][e][SLOTS - 1]) {
-            gh[u][e] = fmaxf(gh[u][e],
-                             insert_sorted(rv[u][e], ri[u][e], v,
-                                           (g + q) * LANES +
-                                               Sweep::item(ig, e)));
+            gh[u][e] = fmax_nan(gh[u][e],
+                                insert_sorted(rv[u][e], ri[u][e], v,
+                                              (g + q) * LANES +
+                                                  Sweep::item(ig, e)));
           } else {
-            gh[u][e] = fmaxf(gh[u][e], v);  // fmaxf drops a NaN
+            gh[u][e] = fmax_nan(gh[u][e], v);  // a NaN score sticks
           }
         }
       }
@@ -173,17 +176,17 @@ merge_parts_kernel(const float* __restrict__ part_v,
   }
   for (int p = 0; p < parts; ++p) {
     const size_t base = (size_t)p * n_users + row;
-    gh = fmaxf(gh, part_g[base * LANES + c]);
+    gh = fmax_nan(gh, part_g[base * LANES + c]);
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
       const size_t at = base * (SLOTS * LANES) + s * LANES + c;
       const float v = part_v[at];
       if (!(v > rv[SLOTS - 1])) {
         // the part's slots are sorted: none of the rest enters either
-        gh = fmaxf(gh, v);
+        gh = fmax_nan(gh, v);
         break;
       }
-      gh = fmaxf(gh, insert_sorted(rv, ri, v, part_i[at]));
+      gh = fmax_nan(gh, insert_sorted(rv, ri, v, part_i[at]));
     }
   }
   const size_t row_at = (size_t)row * (SLOTS * LANES) + c;

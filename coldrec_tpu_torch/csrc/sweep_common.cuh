@@ -1,7 +1,8 @@
 // Device code shared by the kernel-variant sweeps (exp_retrieval_kernels.cu,
 // exp_multiacc.cu, exp_blockskip.cu): the TPU kernels' block-local top-2
 // chain, their merge of two such chains, the sorted 8-slot insertion
-// cascade, and the user-tile loads.
+// cascade, the user-tile loads of the stream sweep, and the running slots
+// of the sweeps that walk the shared tile of sweep_tile.cuh.
 //
 // These reproduce the tie rules of the Pallas kernels in tools/exp_*.py and
 // coldrec_tpu/ops/pallas/retrieval.py, not those of retrieval.cu (which
@@ -17,6 +18,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sweep_tile.cuh"
 
 namespace coldrec_exp {
 
@@ -187,6 +190,104 @@ inline cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
 // The block width's contract: a positive multiple of 128 dividing I_pad.
 inline bool valid_blocks(int i_pad, int block_i) {
   return block_i > 0 && block_i % LANES == 0 && i_pad % block_i == 0;
+}
+
+// The running slots of a thread's (user, class) pairs on the shared tile
+// (coldrec_tile::Shape S: pair (u, e) is user S::user(ug, u) and lane class
+// S::item(ig, e)). The values and the ghost are read at every block end and
+// stay in registers; the ids are only moved by the cascade, so they live in
+// shared memory, SLOTS x S::RU x S::RI ints a thread, laid out so that the
+// threads of a warp touch consecutive words.
+template <class S>
+struct TileSlots {
+  static constexpr int RU = S::RU, RI = S::RI;
+  // shared memory of the ids of a block
+  static constexpr size_t ID_BYTES =
+      sizeof(int) * SLOTS * RU * RI * (size_t)S::THREADS;
+  float rv[RU][RI][SLOTS];
+  float gh[RU][RI];
+  int* ids;
+
+  __device__ __forceinline__ int* id(int u, int e, int s) const {
+    return ids + ((s * RU + u) * RI + e) * S::THREADS + threadIdx.x;
+  }
+
+  __device__ __forceinline__ void init(int* shared_ids) {
+    ids = shared_ids;
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+#pragma unroll
+      for (int e = 0; e < RI; ++e) {
+        gh[u][e] = INIT_NEG;
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          rv[u][e][s] = INIT_NEG;
+          *id(u, e, s) = 0;
+        }
+      }
+    }
+  }
+
+  // insert_block for pair (u, e)
+  __device__ __forceinline__ void insert(int u, int e, const Top2& t,
+                                         int lane_base) {
+    int ri[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) ri[s] = *id(u, e, s);
+    insert_block(rv[u][e], ri, gh[u][e], t, lane_base);
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) *id(u, e, s) = ri[s];
+  }
+
+  // slot `slot` of pair (u, e), with no dynamic register index
+  __device__ __forceinline__ float value(int u, int e, int slot) const {
+    float f = rv[u][e][0];
+#pragma unroll
+    for (int s = 1; s < SLOTS; ++s) f = (s == slot) ? rv[u][e][s] : f;
+    return f;
+  }
+
+  // write pair (u, e) to row `row` of the outputs, lane class c
+  __device__ __forceinline__ void store(float* __restrict__ cand_v,
+                                        int* __restrict__ cand_i,
+                                        float* __restrict__ ghost, size_t row,
+                                        int u, int e, int c) const {
+    int ri[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) ri[s] = *id(u, e, s);
+    store_slots(cand_v, cand_i, ghost, row, c, rv[u][e], ri, gh[u][e]);
+  }
+};
+
+// Where a block ends inside a step of the walk: the epilogues count the
+// item groups left in the current block of block_i / 128 groups.
+struct BlockClock {
+  int slices;  // groups per block
+  int left;  // groups of the current block still to come
+  int base;  // first item id of the current block
+
+  __device__ __forceinline__ void init(int block_i) {
+    slices = block_i / LANES;
+    left = slices;
+    base = 0;
+  }
+  // the block-relative slice of the next group
+  __device__ __forceinline__ int slice() const { return slices - left; }
+  // count one group; true when it closed its block
+  __device__ __forceinline__ bool tick() { return --left == 0; }
+  __device__ __forceinline__ void next_block() {
+    base += slices * LANES;
+    left = slices;
+  }
+};
+
+// Dynamic shared memory of a variant sweep on tile S at depth d: the walk's
+// (users resident) and the ids of TileSlots, or 0 where that exceeds what
+// a block may use beside `static_bytes` of static shared memory.
+template <class S>
+inline size_t tile_smem(int d, size_t static_bytes) {
+  const size_t bytes = S::template smem_bytes<true>(d) + TileSlots<S>::ID_BYTES;
+  return bytes + static_bytes <= SMEM_MAX ? bytes : 0;
 }
 
 }  // namespace coldrec_exp

@@ -331,6 +331,15 @@ __device__ __forceinline__ void sweep_walk(const Tile& t, int g_lo, int g_hi,
   cp_async_wait<0>();
 }
 
+// max(a, b) that is NaN where either is NaN (PTX max.NaN, sm_80+), where
+// fmaxf would return the other operand: a ghost that once takes a NaN
+// score keeps it, as jnp.maximum does in the TPU kernel.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Part p of `parts` covers groups [part_lo(p), part_lo(p + 1)).
 __device__ __forceinline__ int part_lo(int groups, int parts, int p) {
   return (int)(((long long)groups * p) / parts);

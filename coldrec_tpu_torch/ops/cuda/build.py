@@ -88,13 +88,15 @@ def build() -> BuildResult:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        reports = []
+        reports, failures = [], []
         for cmd, proc in procs:
             output, _ = proc.communicate(
                 timeout=max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0)))
             if proc.returncode != 0:
-                raise _failed(cmd, proc.returncode, output)
+                failures.append(_failed(cmd, proc.returncode, output))
             reports.append(output.strip())
+        if failures:  # every source's errors, not the first one's alone
+            raise RuntimeError("\n".join(str(f) for f in failures))
         tmp = work / out.name
         cmd = [nvcc, "-shared", "-o", str(tmp),
                *(str(work / f"{Path(n).stem}.o") for n in SOURCES)]
@@ -122,7 +124,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "coldrec_dot_sweep": [vp] * 4 + [ci] * 5 + [vp],
         "coldrec_stream_sweep": [vp] * 6 + [ci] * 4 + [vp],
         "coldrec_multiacc_sweep": [vp] * 6 + [ci] * 5 + [vp],
-        "coldrec_skip_sweep": [vp] * 7 + [ci] * 6 + [vp],
+        "coldrec_skip_sweep": [vp] * 7 + [ci] * 9 + [vp],
+        # (d, cta_tile, cluster) -> resident clusters
+        "coldrec_skip_max_clusters": [ci] * 3,
     }
     # the item ranges a sweep is split into: (n_users, d, i_pad) -> parts
     for name in ("coldrec_fused_sweep_parts", "coldrec_dot_sweep_parts"):

@@ -22,9 +22,12 @@ rated items are rejected, a row whose max ghost is below theta, and where no
 tie crosses the cut, holds the exact top-k; every other row is recomputed by
 the exact ``masked_topk`` path in bounded chunks.
 
-A score that is NaN never enters a slot or a ghost (the TPU kernel's
-strict compares drop it the same way); nor does one at or below
-``INIT_NEG``. Unfilled slots hold (``INIT_NEG``, 0).
+A score that is NaN never enters a slot (the TPU kernel's strict
+compares drop it the same way), and it turns its lane class's ghost into
+NaN for good, as the TPU kernel's ``jnp.maximum`` does. ``_resolve`` then
+never flags the row on its ghost (``NaN >= theta`` is false), as in the
+JAX package. A score at or below ``INIT_NEG`` enters neither. Unfilled
+slots hold (``INIT_NEG``, 0).
 
 The kernel splits the item range into parts on 128-item boundaries, as
 many as fill the card's SMs for the batch (``sweep_parts``), and a second
@@ -131,8 +134,10 @@ def fused_sweep_reference(
     score (exact fp32), mask, view as (B, I_pad/128, 128) lane classes, a
     stable descending sort per class (ties: lowest id first), the top
     SLOTS as candidates and the next value as the ghost. NaN scores sort
-    last as -inf, and values at or below INIT_NEG fill no slot and no
-    ghost, as in the kernel."""
+    last as -inf and fill no slot, but a class holding one (after the
+    exclusion mask: an excluded NaN item scores NEG) gets a NaN ghost, with
+    any number of item groups; values at or below INIT_NEG fill no slot
+    and no ghost, as in the kernel."""
     b = users.shape[0]
     groups = items_t.shape[1] // LANES
     dev = users.device
@@ -146,7 +151,9 @@ def fused_sweep_reference(
     for s in range(0, b, REFERENCE_CHUNK):
         e = min(b, s + REFERENCE_CHUNK)
         z = exact_scores(users[s:e], items_t.T).masked_fill(excluded, NEG)
-        z = z.masked_fill(z.isnan(), -float("inf"))
+        nan = z.isnan()
+        nan_class = nan.view(e - s, groups, LANES).any(dim=1)
+        z = z.masked_fill(nan, -float("inf"))
         v, g = z.view(e - s, groups, LANES).sort(
             dim=1, descending=True, stable=True
         )
@@ -156,6 +163,7 @@ def fused_sweep_reference(
             keep, g[:, :top] * LANES + lane, 0).to(torch.int32)
         if groups > SLOTS:
             ghost[s:e] = v[:, SLOTS].clamp_min(INIT_NEG)
+        ghost[s:e].masked_fill_(nan_class, float("nan"))
     return cand_v.view(b, CANDIDATES), cand_i.view(b, CANDIDATES), ghost
 
 
@@ -219,7 +227,8 @@ def merge_parts_reference(part_v, part_i, part_g):
     """Plain version of the merge: per (user, class) a stable descending
     sort of the parts' slots in part order (a later part's ids are larger,
     so ties keep the lowest id), the top SLOTS (unfilled: (INIT_NEG, 0)),
-    and the max of the parts' ghosts and of the best value left out."""
+    and the max of the parts' ghosts and of the best value left out (NaN
+    where a part's ghost is NaN: ``amax`` and ``maximum`` propagate it)."""
     parts, b, _ = part_v.shape
     v = part_v.view(parts, b, SLOTS, LANES).transpose(0, 1).reshape(
         b, parts * SLOTS, LANES)
@@ -244,9 +253,11 @@ def _resolve(cand_v, cand_i, ghost, rated, k: int):
     Membership is a broadcast equality reduce over (B, SLOTS*128, R). The
     selection is a stable sort (lowest candidate position first among ties,
     as the JAX package's masked argmax passes). A row is flagged when its
-    max ghost reaches theta, or when more candidates tie with theta than
-    the selection kept; both flags are permutation-invariant, and the
-    (-value, id) order is applied on the host (``_torch_tie_order``)."""
+    max ghost reaches theta (never where a ghost is NaN: ``max``
+    propagates it and ``NaN >= theta`` is false, as in the JAX package), or
+    when more candidates tie with theta than the selection kept; both
+    flags are permutation-invariant, and the (-value, id) order is applied
+    on the host (``_torch_tie_order``)."""
     is_rated = (cand_i[:, :, None] == rated[:, None, :]).any(dim=-1)
     cand_v = cand_v.masked_fill(is_rated, INIT_NEG)
     vals, pos = cand_v.sort(dim=1, descending=True, stable=True)

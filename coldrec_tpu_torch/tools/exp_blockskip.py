@@ -4,9 +4,12 @@ The port's counterpart of ``tools/exp_blockskip.py``. Hypothesis under
 test: compute each item block's max first and skip the block's top-2
 extraction when the max cannot beat the running candidate floor. The skip
 is decided per tile of ``tile_u`` users: it fires only when ALL users of the
-tile are dominated, so the tile size is part of the function. The CUDA
-kernel (``coldrec_tpu_torch/csrc/exp_blockskip.cu``) gives one tile to one
-CTA; on the TPU a 256-user tile was one grid program.
+tile are dominated, so the tile size is part of the function. On the TPU a
+256-user tile was one grid program. The CUDA kernel
+(``coldrec_tpu_torch/csrc/exp_blockskip.cu``) scores each block once on the
+shared product tile of ``csrc/sweep_tile.cuh``: a CTA holds 16 users, and a
+tile of more spans a thread-block cluster whose CTAs combine the predicate
+through distributed shared memory (``skip_layout``).
 
 The experiment measures:
   * two floors: rv[0], the min over lanes of each lane's top value, and
@@ -33,13 +36,13 @@ from __future__ import annotations
 
 import argparse
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.cuda.build import launch
+from ..ops.cuda.build import launch, load_library
 from ..ops.cuda.retrieval import (
     SLOTS, _check_sweep_inputs, _resolve, _round_up, _torch_tie_order,
     empty_candidates, fused_sweep,
@@ -52,7 +55,9 @@ from .exp_retrieval_kernels import (
 DIM = 64
 TOP_K = 20
 MAX_RATED = 64
-USER_GROUP = 4  # users one group of the kernel's CTA scores at a time
+USER_GROUP = 4  # tile_u is a multiple of this
+CTA_TILES = (16, 32)  # the kernel's CTA tiles (users)
+MAX_CLUSTER = 16  # CTAs of a cluster on an H100 (non-portable above 8)
 
 
 def _check_skip_args(tile_u, floor_slot):
@@ -63,16 +68,53 @@ def _check_skip_args(tile_u, floor_slot):
         raise ValueError(f"floor_slot={floor_slot} must be in [0, {SLOTS})")
 
 
+class SkipLayout(NamedTuple):
+    """How the skip kernel lays ``b_pad`` users out in tiles of
+    ``tile_u``: ``cta_tile`` users in a CTA's tile (the kernel instance);
+    with ``cluster`` 1, each CTA holds ``cta_users`` rows (whole tiles), and
+    otherwise a tile spans ``cluster`` CTAs, rank r holding its rows
+    r*cta_tile .. (the last rank the rest); ``ctas`` in all."""
+    cta_tile: int
+    cta_users: int
+    cluster: int
+    ctas: int
+
+
+def skip_layout(tile_u: int, b_pad: int,
+                cta_tile: Optional[int] = None) -> SkipLayout:
+    """The kernel's layout for tiles of ``tile_u`` users (a positive
+    multiple of 4 dividing ``b_pad``): the 16-user CTA tile up to tiles of
+    16 x 16 users, the 32-user one above, or the ``cta_tile`` given (one of
+    ``CTA_TILES``). A tile of more than 512 users needs a cluster of more
+    than ``MAX_CLUSTER`` CTAs, which the card refuses at launch."""
+    _check_skip_args(tile_u, 0)
+    if b_pad <= 0 or b_pad % tile_u:
+        raise ValueError(f"b_pad={b_pad} must be a positive multiple of "
+                         f"tile_u={tile_u}")
+    small, large = CTA_TILES
+    if cta_tile is None:
+        cta_tile = small if tile_u <= small * MAX_CLUSTER else large
+    elif cta_tile not in CTA_TILES:
+        raise ValueError(f"cta_tile={cta_tile} must be one of {CTA_TILES}")
+    if tile_u <= cta_tile:
+        cta_users = cta_tile // tile_u * tile_u
+        return SkipLayout(cta_tile, cta_users, 1, -(-b_pad // cta_users))
+    cluster = -(-tile_u // cta_tile)
+    return SkipLayout(cta_tile, cta_tile, cluster, b_pad // tile_u * cluster)
+
+
 def skip_sweep(users: torch.Tensor, items_t: torch.Tensor,
                excl: torch.Tensor, tile_u: int, block_i: int,
-               floor_slot: int):
+               floor_slot: int, cta_tile: Optional[int] = None):
     """(cand_v (B, 1024) f32, cand_i (B, 1024) i32, ghost (B, 128) f32,
     skips (ceil(B / tile_u),) i32): the streaming sweep over blocks of
     ``block_i`` items, skipping the extraction of a block when every user of
     a ``tile_u`` tile has a block max below its floor, the min over lanes
     of slot ``floor_slot``. Users are padded with zero rows to a multiple
     of ``tile_u`` (pad rows take part in the predicate); their rows are not
-    returned. ``skips`` counts each tile's skipped blocks."""
+    returned. ``skips`` counts each tile's skipped blocks. ``cta_tile``
+    picks the kernel's CTA tile (``skip_layout``); no result depends on
+    it."""
     _check_sweep_inputs(users, items_t, excl, "skip_sweep")
     check_blocks(items_t.shape[1], block_i)
     _check_skip_args(tile_u, floor_slot)
@@ -87,16 +129,32 @@ def skip_sweep(users: torch.Tensor, items_t: torch.Tensor,
         cand_v, cand_i, ghost = empty_candidates(b_pad, users.device)
         skips = torch.empty(b_pad // tile_u, dtype=torch.int32,
                             device=users.device)
+        layout = skip_layout(tile_u, b_pad, cta_tile)
         launch("coldrec_skip_sweep", users.device, users.data_ptr(),
                items_t.data_ptr(), excl.data_ptr(), cand_v.data_ptr(),
                cand_i.data_ptr(), ghost.data_ptr(), skips.data_ptr(), b_pad,
-               d, items_t.shape[1], block_i, tile_u, floor_slot)
+               d, items_t.shape[1], block_i, tile_u, floor_slot,
+               layout.cta_tile, layout.cta_users, layout.cluster)
         skip_sweep.launches += 1
         out = (cand_v, cand_i, ghost, skips)
     return tuple(t[:b] for t in out[:3]) + (out[3],)
 
 
 skip_sweep.launches = 0
+
+
+def max_active_clusters(device, d: int, tile_u: int, b_pad: int,
+                        cta_tile: Optional[int] = None) -> int:
+    """How many clusters of ``skip_layout(tile_u, b_pad, cta_tile)`` the
+    card holds at once at depth ``d`` (cudaOccupancyMaxActiveClusters): a
+    grid of more runs in waves."""
+    layout = skip_layout(tile_u, b_pad, cta_tile)
+    lib = load_library()
+    with torch.cuda.device(device):
+        n = lib.coldrec_skip_max_clusters(d, layout.cta_tile, layout.cluster)
+    if n < 0:
+        raise RuntimeError("coldrec_skip_max_clusters failed")
+    return n
 
 
 def skip_sweep_reference(users_pad, items_t, excl, tile_u, block_i,

@@ -7,8 +7,10 @@ dependency chain; P independent accumulator groups (group p owns the item
 slices s with s % P == p, merged into the exact block top-2 and 3rd-best
 ghost once per block) ask the same question of the card: how much
 instruction-level parallelism is missing. The CUDA kernel
-(``coldrec_tpu_torch/csrc/exp_multiacc.cu``) keeps the stream kernel's
-product loop, so P changes the chains alone.
+(``coldrec_tpu_torch/csrc/exp_multiacc.cu``) runs on the shared product
+tile of ``csrc/sweep_tile.cuh``, the one the production sweep runs on; P
+changes the chains and, through their registers, the tile's users per
+CTA.
 
 The merge is value- and id-identical to the single chain, so
 ``multiacc_sweep`` computes the same function as
@@ -21,7 +23,8 @@ Usage:
         [--device cuda]
 
 ``--tile_u`` pads the users as the JAX tool does; the CUDA kernel chooses
-its own user tile per P (4 users, 2 at P = 8), which changes no result.
+its own user tile per P (16 users at P = 1 and 2, 8 at P = 4, 4 at P = 8),
+which changes no result.
 """
 from __future__ import annotations
 

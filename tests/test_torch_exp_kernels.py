@@ -194,3 +194,57 @@ def test_multiacc_check_and_blockskip_check_exact_on_cpu(capsys):
     stats = tebs.check_exact(ue, ie, rat, TILE_U, 256, 0, device="cpu")
     assert 0.0 <= stats["skip_rate"] <= 1.0
     assert stats["flags_skip"] >= 0 and stats["flags_prod"] >= 0
+
+
+def _cta_rows(layout, tile_u, b_pad):
+    """(first row, rows) of each CTA, as ``csrc/exp_blockskip.cu`` derives
+    them from the layout."""
+    out = []
+    for x in range(layout.ctas):
+        if layout.cluster == 1:
+            u0 = x * layout.cta_users
+            out.append((u0, min(layout.cta_users, b_pad - u0)))
+        else:
+            r = x % layout.cluster
+            u0 = x // layout.cluster * tile_u + r * layout.cta_tile
+            out.append((u0, min(layout.cta_tile, tile_u - r * layout.cta_tile)))
+    return out
+
+
+@pytest.mark.parametrize("tile_u", [4, 8, 12, 16, 64, 256, 260])
+@pytest.mark.parametrize("n_tiles", [1, 3, 8])
+def test_skip_layout_covers_every_tile(tile_u, n_tiles):
+    """Every row lies in one CTA, a CTA holds whole tiles or the rows of
+    one tile, the rows of a tile lie in one cluster of at most 16 CTAs, and
+    no CTA holds more rows than its tile."""
+    b_pad = tile_u * n_tiles
+    lay = tebs.skip_layout(tile_u, b_pad)
+    assert lay.cta_tile in tebs.CTA_TILES
+    assert 1 <= lay.cluster <= tebs.MAX_CLUSTER
+    rows = _cta_rows(lay, tile_u, b_pad)
+    assert len(rows) == lay.ctas
+    seen = np.zeros(b_pad, int)
+    for x, (u0, n) in enumerate(rows):
+        assert 0 < n <= lay.cta_tile
+        seen[u0:u0 + n] += 1
+        if lay.cluster == 1:
+            assert u0 % tile_u == 0 and n % tile_u == 0
+        else:
+            assert (u0 // tile_u == (u0 + n - 1) // tile_u
+                    == x // lay.cluster)
+    assert (seen == 1).all()
+    if tile_u <= 16 * tebs.MAX_CLUSTER:
+        assert lay.cta_tile == 16
+    if tile_u > 16:
+        assert lay.cluster == -(-tile_u // lay.cta_tile)
+
+
+def test_skip_layout_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        tebs.skip_layout(6, 12)
+    with pytest.raises(ValueError):
+        tebs.skip_layout(8, 12)
+    with pytest.raises(ValueError):
+        tebs.skip_layout(8, 16, cta_tile=24)
+    assert tebs.skip_layout(256, 512, cta_tile=32).cluster == 8
+    assert tebs.skip_layout(520, 520).cluster == 17  # the card refuses it

@@ -28,6 +28,18 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _same(got, ref):
+    """Bit for bit equal, NaN equal to NaN at the same places
+    (``torch.equal`` is False on any NaN)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, ref)
+    nan = got.isnan()
+    return torch.equal(nan, ref.isnan()) and torch.equal(got[~nan],
+                                                         ref[~nan])
+
+
 def _tables(device, n_users, n_items, d, seed=0, ints=False):
     rng = np.random.default_rng(seed)
     if ints:
@@ -88,17 +100,31 @@ SPLIT_SHAPES = ([(b, 16) for b in (1, 7, 130, 512, 2049)]
 
 
 def _int_sweep_inputs(device, n_users, n_items, d, seed, nan_items=0):
+    users, items_t, excl_row, _ = _int_sweep_nan(device, n_users, n_items, d,
+                                                 seed, nan_items)
+    return users, items_t, excl_row
+
+
+def _int_sweep_nan(device, n_users, n_items, d, seed, nan_items=0):
+    """The inputs of ``_int_sweep_inputs`` and the (128,) mask of the lane
+    classes holding a NaN item that is not excluded (their ghosts are
+    NaN)."""
     rng = np.random.default_rng(seed)
     ue = rng.integers(-3, 4, (n_users, d)).astype(np.float32)
     ie = rng.integers(-3, 4, (n_items, d)).astype(np.float32)
+    nan_rows = np.zeros(0, np.int64)
     if nan_items:
-        ie[rng.choice(n_items, nan_items, replace=False)] = np.nan
-        ie[[1, 129, 257]] = np.nan  # several in one lane class
+        nan_rows = np.concatenate([
+            rng.choice(n_items, nan_items, replace=False), [1, 129, 257]])
+        ie[nan_rows] = np.nan  # the last three in one lane class
     excluded = rng.random(n_items) < 0.2
     users = torch.as_tensor(ue, device=device)
     items_t, excl_row = tret.pad_items(torch.as_tensor(ie, device=device),
                                        torch.as_tensor(excluded, device=device))
-    return users, items_t, excl_row
+    nan_class = torch.zeros(tret.LANES, dtype=torch.bool, device=device)
+    live = nan_rows[~excluded[nan_rows]]
+    nan_class[torch.as_tensor(live % tret.LANES, device=device)] = True
+    return users, items_t, excl_row, nan_class
 
 
 @pytest.mark.parametrize("n_users,d", SPLIT_SHAPES)
@@ -117,16 +143,21 @@ def test_kernel_split_integer_tables_exact(cuda, n_users, d):
         assert torch.equal(g, r)
 
 
-def test_kernel_nan_items_match_plain(cuda):
-    """NaN item rows never enter a slot or a ghost, on the card as in the
-    plain version."""
-    users, items_t, excl_row = _int_sweep_inputs(cuda, 70, 5000, 16, seed=9,
-                                                 nan_items=200)
+@pytest.mark.parametrize("n_users", [70, 512])
+def test_kernel_nan_items_match_plain(cuda, n_users):
+    """NaN item rows never enter a slot, and the ghost of every lane class
+    holding one that is not excluded is NaN, on the card (one part at 70
+    users of 5000 items; parts and the merge at 512) as in the plain
+    version."""
+    users, items_t, excl_row, nan_class = _int_sweep_nan(
+        cuda, n_users, 5000, 16, seed=9, nan_items=200)
     got = tret.fused_sweep(users, items_t, excl_row)
     ref = tret.fused_sweep_reference(users, items_t, excl_row)
     for g, r in zip(got, ref):
-        assert torch.equal(g, r)
-    assert not bool(got[0].isnan().any() or got[2].isnan().any())
+        assert _same(g, r)
+    assert not bool(got[0].isnan().any())
+    assert bool(nan_class.any())
+    assert torch.equal(got[2].isnan(), nan_class.expand_as(got[2]))
 
 
 @pytest.mark.parametrize("parts", [2, 3, 8])
@@ -140,10 +171,11 @@ def test_merge_kernel_matches_plain(cuda, parts):
     assert tret.merge_parts.launches == before + 1
     ref = tret.merge_parts_reference(pv, pi, pg)
     for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+        assert _same(g, r)
     for g, r in zip(got, tret.fused_sweep_reference(users, items_t,
                                                     excl_row)):
-        assert torch.equal(g, r)
+        assert _same(g, r)
+    assert bool(got[2].isnan().any())  # the NaN ghosts went through
 
 
 def test_retrieval_topk_card_equals_cpu(cuda):
@@ -267,19 +299,72 @@ def test_multiacc_kernel_matches_plain(cuda, p_acc, block_i):
                                                   block_i))
 
 
+# blocks that close inside a step of the tile's walk (256, 384) and span
+# many steps (2048, 8192); 24,576 items hold a whole number of each
+@pytest.mark.parametrize("p_acc", tema.P_ACC)
+@pytest.mark.parametrize("block_i", [256, 384, 2048, 8192])
+def test_multiacc_kernel_block_grid(cuda, p_acc, block_i):
+    users, _, items_t, excl = _variant_tables(cuda, 37, 24576, 16, 17)
+    got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
+        users, items_t, excl, block_i, p_acc))
+    _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
+                                                  block_i))
+
+
+def _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, block_i):
+    """The kernel's outputs, held bit for bit to the plain version on the
+    users padded to the tile; returns the skip counts."""
+    b, d = users.shape
+    got = _launched(tebs.skip_sweep, lambda: tebs.skip_sweep(
+        users, items_t, excl, tile_u, block_i, floor_slot))
+    pad = torch.zeros((got[3].numel() * tile_u, d), device=cuda)
+    pad[:b] = users
+    ref = tebs.skip_sweep_reference(pad, items_t, excl, tile_u, block_i,
+                                    floor_slot)
+    _assert_same(got, [r[:b] for r in ref[:3]] + [ref[3]])
+    return got[3]
+
+
 @pytest.mark.parametrize("tile_u,floor_slot", [(8, 0), (8, 7), (64, 0),
                                                (256, 7)])
 def test_skip_kernel_matches_plain_where_skips_fire(cuda, tile_u, floor_slot):
     users, _, items_t, excl = _variant_tables(cuda, 300, 4096, 8, 8,
                                               block_i=256)
-    got = _launched(tebs.skip_sweep, lambda: tebs.skip_sweep(
-        users, items_t, excl, tile_u, 256, floor_slot))
-    pad = torch.zeros((got[3].numel() * tile_u, 8), device=cuda)
-    pad[:300] = users
-    ref = tebs.skip_sweep_reference(pad, items_t, excl, tile_u, 256,
-                                    floor_slot)
-    _assert_same(got, [r[:300] for r in ref[:3]] + [ref[3]])
-    assert int(got[3].max()) > 0
+    skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 256)
+    assert int(skips.max()) > 0
+
+
+# 4 and 16: whole tiles in a CTA; 64 and 256: a cluster of 4 and of 16
+# CTAs; 260: the 32-user CTA tile in a cluster of 9, the last CTA partly
+# filled. 1040 users are no multiple of 64, 256 or 260.
+@pytest.mark.parametrize("tile_u", [4, 16, 64, 256, 260])
+@pytest.mark.parametrize("floor_slot", [0, 7])
+@pytest.mark.parametrize("table", ["falling", "iid"])
+def test_skip_kernel_layout_grid(cuda, tile_u, floor_slot, table):
+    falling = table == "falling"
+    users, _, items_t, excl = _variant_tables(
+        cuda, 1040, 8192, 8, 9, block_i=512 if falling else None)
+    skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 512)
+    if falling and floor_slot == 0:
+        assert int(skips.max()) > 0
+
+
+@pytest.mark.parametrize("cta_tile", tebs.CTA_TILES)
+def test_skip_kernel_either_cta_tile(cuda, cta_tile):
+    """The 32-user CTA tile (a cluster of 8 at tile_u 256) gives the same
+    result as the 16-user one."""
+    users, _, items_t, excl = _variant_tables(cuda, 512, 4096, 8, 10,
+                                              block_i=256)
+    got = tebs.skip_sweep(users, items_t, excl, 256, 256, 0, cta_tile)
+    ref = tebs.skip_sweep_reference(users, items_t, excl, 256, 256, 0)
+    _assert_same(got, ref)
+    assert int(got[3].sum()) > 0
+
+
+def test_skip_kernel_refuses_a_cluster_above_16(cuda):
+    users, _, items_t, excl = _variant_tables(cuda, 1040, 1024, 8, 11)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tebs.skip_sweep(users, items_t, excl, 520, 512, 0)
 
 
 def test_variant_wrappers_refuse_bad_card_input(cuda):

@@ -173,7 +173,8 @@ def _nan_case(nan_items, n_users=8, n_items=1024, d=8, seed=11):
                          ids=["one", "one-lane-class"])
 def test_nan_items_never_ranked_as_jax_kernel_path(nan_items):
     """A NaN item row scores NaN for every user: the JAX kernel path drops
-    it, and so must the port's plain sweep (no slot, no ghost)."""
+    it, and so must the port's plain sweep (no slot; the ghost of its lane
+    class turns NaN, as the TPU kernel's does)."""
     ue, ie, rated, excluded = _nan_case(nan_items)
     jv, ji = _jax(ue, ie, rated, excluded, 5, block_i=256)
     tv, ti = _port(ue, ie, rated, excluded, 5)
@@ -184,8 +185,95 @@ def test_nan_items_never_ranked_as_jax_kernel_path(nan_items):
     items_t, excl_row = tret.pad_items(torch.as_tensor(ie),
                                        torch.as_tensor(excluded))
     cv, ci, gh = tret.fused_sweep(users, items_t, excl_row)
-    assert not bool(cv.isnan().any() or gh.isnan().any())
+    assert not bool(cv.isnan().any())
+    nan_class = torch.zeros(tret.LANES, dtype=torch.bool)
+    nan_class[[i % tret.LANES for i in nan_items]] = True
+    assert torch.equal(gh.isnan(), nan_class.expand_as(gh))
     assert not set(ci[cv > tret.INIT_NEG].tolist()) & set(nan_items)
+
+
+def _crowded_case(nan_item, excluded_nan=False, n_users=8, n_blocks=12,
+                  block_i=256, d=8, seed=21):
+    """One lane class (0) holds 11 of every row's top-12 items, one per
+    item block of ``block_i``, so the TPU kernel's block-local top-2 keeps
+    each of them and both packages hold the same candidates; its 8 slots
+    overflow, so only the ghost of the NaN item's class decides the flag."""
+    rng = np.random.default_rng(seed)
+    n_items = n_blocks * block_i
+    ue = np.zeros((n_users, d), np.float32)
+    ue[:, 0] = 1.0
+    ue[:, 1:] = rng.standard_normal((n_users, d - 1)).astype(np.float32)
+    ie = (rng.standard_normal((n_items, d)) * 0.1).astype(np.float32)
+    for rank, iid in enumerate(range(0, (n_blocks - 1) * block_i, block_i)):
+        ie[iid, 0] = 100.0 - rank
+    ie[nan_item] = np.nan
+    excluded = np.zeros(n_items, bool)
+    if excluded_nan:
+        excluded[nan_item] = True
+    rated = np.full((n_users, 2), n_items, np.int32)
+    return ue, ie, rated, excluded
+
+
+def _flags(ue, ie, rated, excluded, k, block_i=256, tile_u=8):
+    """(JAX kernel path's flags, the port's) for the same tables."""
+    n_items = ie.shape[0]
+    i_pad = jret._round_up(n_items, block_i)
+    _, _, jsus = jret._sweep_padded(
+        jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(rated),
+        jnp.asarray(excluded), i_pad, jret._round_up(ue.shape[0], tile_u),
+        tile_u, block_i, k, interpret=True)
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie),
+                                       torch.as_tensor(excluded))
+    cv, ci, gh = tret.fused_sweep(torch.as_tensor(ue), items_t, excl_row)
+    _, _, tsus = tret._resolve(cv, ci, gh, torch.as_tensor(rated).long(), k)
+    return np.asarray(jsus), tsus.numpy()
+
+
+@pytest.mark.parametrize("nan_item,excluded_nan,flagged", [
+    (300, False, False), (1152, False, False), (300, True, True)],
+    ids=["other-class", "crowded-class", "excluded"])
+def test_nan_ghost_decides_the_flag_as_jax(nan_item, excluded_nan, flagged):
+    """The NaN item's class ghost is NaN in both packages, so the row's max
+    ghost is NaN and ``NaN >= theta`` never flags it: both return the
+    candidates' list (the crowded class's 9th to 11th items left out, the
+    NaN item nowhere). An excluded NaN item scores NEG, so the ghost stays
+    finite and both flag every row and take the exact path."""
+    ue, ie, rated, excluded = _crowded_case(nan_item, excluded_nan)
+    k = 12
+    jsus, tsus = _flags(ue, ie, rated, excluded, k)
+    np.testing.assert_array_equal(tsus, jsus)
+    assert bool(tsus.all()) == flagged and bool(tsus.any()) == flagged
+    jv, ji = _jax(ue, ie, rated, excluded, k, block_i=256)
+    tv, ti = _port(ue, ie, rated, excluded, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tv, jv)
+    if not excluded_nan:
+        assert nan_item not in set(ti.ravel().tolist())
+
+
+@pytest.mark.parametrize("groups", [4, 20])
+def test_plain_ghost_is_nan_exactly_in_nan_classes(groups):
+    """With fewer item groups than SLOTS (no ghost value otherwise) and with
+    more: a class's ghost is NaN iff one of its scores is NaN after the
+    exclusion mask; every other ghost and every slot is a number."""
+    rng = np.random.default_rng(groups)
+    n_items, d = groups * tret.LANES, 6
+    ue = rng.integers(-3, 4, (9, d)).astype(np.float32)
+    ie = rng.integers(-3, 4, (n_items, d)).astype(np.float32)
+    nan_rows = rng.choice(n_items, 5, replace=False)
+    ie[nan_rows] = np.nan
+    excluded = np.zeros(n_items, bool)
+    excluded[nan_rows[:2]] = True  # masked first: these score NEG
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie),
+                                       torch.as_tensor(excluded))
+    cv, _, gh = tret.fused_sweep_reference(torch.as_tensor(ue), items_t,
+                                           excl_row)
+    nan_class = torch.zeros(tret.LANES, dtype=torch.bool)
+    nan_class[torch.as_tensor(nan_rows[2:] % tret.LANES)] = True
+    assert torch.equal(gh.isnan(), nan_class.expand_as(gh))
+    assert not bool(cv.isnan().any())
+    if groups <= tret.SLOTS:
+        assert bool((gh[:, ~nan_class] == tret.INIT_NEG).all())
 
 
 def _split_tables(kind, seed=0):
@@ -216,8 +304,9 @@ def test_split_and_merge_equal_one_sweep(kind, parts):
     ref = tret.fused_sweep_reference(users, items_t, excl_row)
     got = tret.merge_parts(*tret.sweep_parts_reference(
         users, items_t, excl_row, parts))
-    for g, r in zip(got, ref):
-        assert g.dtype == r.dtype and torch.equal(g, r)
+    for g, r in zip(got, ref):  # bit for bit, NaN ghosts at equal places
+        assert g.dtype == r.dtype
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
     assert tret.merge_parts.launches == 0  # the CPU runs the plain merge
 
 
