@@ -45,8 +45,7 @@ Phases, each printed with its seconds:
               the least time the card could take; timing-variants first
               logs each kernel's registers and spill bytes (the build's
               ``-Xptxas -v``), the skip kernel's resident clusters per
-              layout, and every P and tile_u time (tile_u with both CTA
-              tiles).
+              layout, and every P and tile_u time.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -693,11 +692,10 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
     kernel_registers(ptxas)
     if device.type == "cuda":
         for tile_u in tiles:
-            for cta in ebs.CTA_TILES:
-                lay = ebs.skip_layout(tile_u, n_users, cta)
-                n = ebs.max_active_clusters(device, d, tile_u, n_users, cta)
-                log(f"  skip_sweep layout tile_u={tile_u} {lay}: {n} "
-                    "clusters resident at once")
+            lay = ebs.skip_layout(tile_u, n_users)
+            n = ebs.max_active_clusters(device, d, tile_u, n_users)
+            log(f"  skip_sweep layout tile_u={tile_u} {lay}: {n} clusters "
+                "resident at once")
     small, big = blocks
     rng = np.random.default_rng(seed)
     users = torch.as_tensor(
@@ -756,13 +754,10 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
         "work")
     skip = {}
     for tile_u in tiles:
-        for cta in ebs.CTA_TILES:
-            t_ms = ms(lambda: ebs.skip_sweep(users, items_t, excl, tile_u,
-                                             big, 0, cta), 2)
-            if cta == ebs.skip_layout(tile_u, n_users).cta_tile:
-                skip[tile_u] = t_ms
-            log(f"  skip_sweep tile_u={tile_u} floor=rv[0] block_i={big} "
-                f"cta_tile={cta}: {t_ms:.3f} ms")
+        skip[tile_u] = ms(lambda: ebs.skip_sweep(users, items_t, excl, tile_u,
+                                                 big, 0), 2)
+        log(f"  skip_sweep tile_u={tile_u} floor=rv[0] block_i={big}: "
+            f"{skip[tile_u]:.3f} ms")
     tile_u = tiles[-1]
     row("skip_sweep", skip[tile_u],
         ms(lambda: skip_plain(users, items_t, excl, tile_u, big, 0), 1),

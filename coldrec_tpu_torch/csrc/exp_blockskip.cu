@@ -44,9 +44,10 @@
 //     shared memory, double-buffered by block parity); one cluster.sync()
 //     per item block, and every CTA reads the same decision. Clusters of
 //     more than 8 CTAs are non-portable (opted in per kernel).
-// A layout the card refuses (a cluster of more than 16) or a depth whose
-// tile leaves the shared memory (d above 544 at TU = 16) returns its error,
-// and the wrapper raises.
+// Where d is too wide for the resident user tile (above 544 at TU = 16),
+// each step stages the users' chunk beside the items'. A layout the card
+// refuses (a cluster of more than 16) returns its error, and the wrapper
+// raises.
 #include <cooperative_groups.h>
 
 #include "sweep_common.cuh"
@@ -218,7 +219,7 @@ struct SkipEpilogue {
   }
 };
 
-template <class S, int LAYOUT>
+template <class S, int LAYOUT, bool RESIDENT>
 __global__ void __launch_bounds__(S::THREADS, 1)
 skip_sweep_kernel(const float* __restrict__ users,
                   const float* __restrict__ items_t,
@@ -254,12 +255,11 @@ skip_sweep_kernel(const float* __restrict__ users,
   epi.floor_slot = floor_slot;
   epi.parity = 0;
   epi.clock.init(block_i);
-  epi.slots.init(reinterpret_cast<int*>(
-      smem + S::TU * d + S::STAGES * S::template stage_floats<true>()));
+  epi.slots.init(tile_ids<S, RESIDENT>(smem, d));
   epi.init_chains();
   if (tid < S::TU) sh.skips[tid] = 0;
   if (cluster > 1) cg::this_cluster().sync();  // every CTA has started
-  tile::sweep_walk<S, LAYOUT, true>(tl, 0, i_pad / LANES, smem, epi);
+  tile::sweep_walk<S, LAYOUT, RESIDENT>(tl, 0, i_pad / LANES, smem, epi);
 
 #pragma unroll
   for (int u = 0; u < S::RU; ++u) {
@@ -281,12 +281,20 @@ skip_sweep_kernel(const float* __restrict__ users,
   }
 }
 
-template <class S, int LAYOUT>
+// The users stay resident where their tile fits in shared memory beside
+// the ring, the ids and the reductions, and are staged step by step at
+// wider d.
+template <class S>
+bool skip_resident(int d) {
+  return tile_smem<S, true>(d, sizeof(SkipShared<S>)) != 0;
+}
+
+template <class S, int LAYOUT, bool RESIDENT>
 cudaError_t skip_config(int n_ctas, int cluster, int d, size_t* smem,
                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  *smem = tile_smem<S>(d, sizeof(SkipShared<S>));
-  if (*smem == 0) return cudaErrorInvalidValue;  // d too wide
-  auto* kernel = skip_sweep_kernel<S, LAYOUT>;
+  *smem = tile_smem<S, RESIDENT>(d, sizeof(SkipShared<S>));
+  if (*smem == 0) return cudaErrorInvalidValue;
+  auto* kernel = skip_sweep_kernel<S, LAYOUT, RESIDENT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (e != cudaSuccess) return e;
@@ -308,7 +316,7 @@ cudaError_t skip_config(int n_ctas, int cluster, int d, size_t* smem,
   return cudaSuccess;
 }
 
-template <class S, int LAYOUT>
+template <class S, int LAYOUT, bool RESIDENT>
 int launch_skip(const float* users, const float* items_t, const int8_t* excl,
                 float* cand_v, int* cand_i, float* ghost, int* skips,
                 int b_pad, int d, int i_pad, int block_i, int tile_u,
@@ -317,15 +325,35 @@ int launch_skip(const float* users, const float* items_t, const int8_t* excl,
   size_t smem = 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e =
-      skip_config<S, LAYOUT>(n_ctas, cluster, d, &smem, &cfg, &attr);
+  cudaError_t e = skip_config<S, LAYOUT, RESIDENT>(n_ctas, cluster, d, &smem,
+                                                   &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, skip_sweep_kernel<S, LAYOUT>, users, items_t,
-                         excl, cand_v, cand_i, ghost, skips, b_pad, d, i_pad,
-                         block_i, tile_u, floor_slot, cta_users, cluster);
+  e = cudaLaunchKernelEx(&cfg, skip_sweep_kernel<S, LAYOUT, RESIDENT>, users,
+                         items_t, excl, cand_v, cand_i, ghost, skips, b_pad,
+                         d, i_pad, block_i, tile_u, floor_slot, cta_users,
+                         cluster);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <class S, int LAYOUT>
+int launch_skip(const float* users, const float* items_t, const int8_t* excl,
+                float* cand_v, int* cand_i, float* ghost, int* skips,
+                int b_pad, int d, int i_pad, int block_i, int tile_u,
+                int floor_slot, int cta_users, int cluster, int n_ctas,
+                cudaStream_t stream) {
+  return skip_resident<S>(d)
+             ? launch_skip<S, LAYOUT, true>(users, items_t, excl, cand_v,
+                                            cand_i, ghost, skips, b_pad, d,
+                                            i_pad, block_i, tile_u,
+                                            floor_slot, cta_users, cluster,
+                                            n_ctas, stream)
+             : launch_skip<S, LAYOUT, false>(users, items_t, excl, cand_v,
+                                             cand_i, ghost, skips, b_pad, d,
+                                             i_pad, block_i, tile_u,
+                                             floor_slot, cta_users, cluster,
+                                             n_ctas, stream);
 }
 
 template <class S>
@@ -366,6 +394,30 @@ int skip_ctas(int b_pad, int tile_u, int cta_tile, int cta_users,
   return b_pad / tile_u * cluster;
 }
 
+// How many clusters of `cluster` CTAs of the tile S kernel (16-byte aligned
+// items, users resident or staged as a launch at depth d takes them) can be
+// resident at once (cudaOccupancyMaxActiveClusters), or -1 on a CUDA error.
+template <class S, bool RESIDENT>
+int skip_max_clusters(int d, int cluster) {
+  size_t smem = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = -1;
+  cudaError_t e = skip_config<S, tile::kRows16, RESIDENT>(cluster, cluster, d,
+                                                          &smem, &cfg, &attr);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveClusters(
+        &n, skip_sweep_kernel<S, tile::kRows16, RESIDENT>, &cfg);
+  }
+  return e == cudaSuccess ? n : -1;
+}
+
+template <class S>
+int skip_max_clusters(int d, int cluster) {
+  return skip_resident<S>(d) ? skip_max_clusters<S, true>(d, cluster)
+                             : skip_max_clusters<S, false>(d, cluster);
+}
+
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream), allocates nothing, does
@@ -404,32 +456,10 @@ extern "C" int coldrec_skip_sweep(const void* users, const void* items_t,
   return (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of `cluster` CTAs of the cta_tile kernel (16-byte
-// aligned items) can be resident at once at depth d
-// (cudaOccupancyMaxActiveClusters), or -1 on a CUDA error.
+// skip_max_clusters of the cta_tile kernel, or -1.
 extern "C" int coldrec_skip_max_clusters(int d, int cta_tile, int cluster) {
   if (d <= 0 || cluster < 1 || cluster > MAX_CLUSTER) return -1;
-  size_t smem = 0;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int n = -1;
-  cudaError_t e;
-  if (cta_tile == SkipT16::TU) {
-    e = skip_config<SkipT16, tile::kRows16>(cluster, cluster, d, &smem, &cfg,
-                                            &attr);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveClusters(
-          &n, skip_sweep_kernel<SkipT16, tile::kRows16>, &cfg);
-    }
-  } else if (cta_tile == SkipT32::TU) {
-    e = skip_config<SkipT32, tile::kRows16>(cluster, cluster, d, &smem, &cfg,
-                                            &attr);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveClusters(
-          &n, skip_sweep_kernel<SkipT32, tile::kRows16>, &cfg);
-    }
-  } else {
-    return -1;
-  }
-  return e == cudaSuccess ? n : -1;
+  if (cta_tile == SkipT16::TU) return skip_max_clusters<SkipT16>(d, cluster);
+  if (cta_tile == SkipT32::TU) return skip_max_clusters<SkipT32>(d, cluster);
+  return -1;
 }

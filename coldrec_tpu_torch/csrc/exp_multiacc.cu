@@ -20,8 +20,9 @@
 // 67 TFLOP/s) against ~88 MB of compulsory traffic (26 us at 3.35 TB/s).
 //
 // Design: the product loop of sweep_tile.cuh (the user tile resident in
-// shared memory, item groups staged by cp.async, a register tile per
-// thread), the one retrieval.cu's sweep runs on. Each thread owns its
+// shared memory, or staged beside the items where d is too wide for it,
+// item groups staged by cp.async, a register tile per thread), the one
+// retrieval.cu's sweep runs on. Each thread owns its
 // (user, class) pairs for the whole walk: P chains (5P registers), the 8
 // slot values and the ghost in registers, the 8 slot ids in shared memory
 // (TileSlots: the ids move only at block ends). A block end may fall inside
@@ -134,7 +135,7 @@ struct MultiEpilogue {
   }
 };
 
-template <class S, int P, int LAYOUT>
+template <class S, int P, int LAYOUT, bool RESIDENT>
 __global__ void __launch_bounds__(S::THREADS, 1)
 multiacc_sweep_kernel(const float* __restrict__ users,
                       const float* __restrict__ items_t,
@@ -150,10 +151,9 @@ multiacc_sweep_kernel(const float* __restrict__ users,
   epi.excl = excl;
   epi.ig = S::ig();
   epi.clock.init(block_i);
-  epi.slots.init(reinterpret_cast<int*>(
-      smem + S::TU * d + S::STAGES * S::template stage_floats<true>()));
+  epi.slots.init(tile_ids<S, RESIDENT>(smem, d));
   epi.init_chains();
-  tile::sweep_walk<S, LAYOUT, true>(tl, 0, i_pad / LANES, smem, epi);
+  tile::sweep_walk<S, LAYOUT, RESIDENT>(tl, 0, i_pad / LANES, smem, epi);
 
   const int ug = S::ug();
 #pragma unroll
@@ -168,33 +168,57 @@ multiacc_sweep_kernel(const float* __restrict__ users,
   }
 }
 
-template <int P>
+template <class S, int P, int LAYOUT, bool RESIDENT>
+int launch_multiacc(const float* users, const float* items_t,
+                    const int8_t* excl, float* cand_v, int* cand_i,
+                    float* ghost, int n_users, int d, int i_pad, int block_i,
+                    cudaStream_t stream) {
+  const size_t smem = tile_smem<S, RESIDENT>(d, 0);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  auto* kernel = multiacc_sweep_kernel<S, P, LAYOUT, RESIDENT>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n_users + S::TU - 1) / S::TU);
+  kernel<<<grid, S::THREADS, smem, stream>>>(users, items_t, excl, cand_v,
+                                             cand_i, ghost, n_users, d,
+                                             i_pad, block_i);
+  return (int)cudaGetLastError();
+}
+
+// The users stay resident where their tile fits in shared memory beside
+// the ring and the ids, and are staged step by step at wider d. Staged,
+// P = 1 takes the tile of P = 2: with P = 1's 8-group step the staging's
+// addresses spill.
+template <int P, int LAYOUT>
 int launch_multiacc(const float* users, const float* items_t,
                     const int8_t* excl, float* cand_v, int* cand_i,
                     float* ghost, int n_users, int d, int i_pad, int block_i,
                     cudaStream_t stream) {
   using S = typename MultiShape<P>::S;
-  const size_t smem = tile_smem<S>(d, 0);
-  if (smem == 0) return (int)cudaErrorInvalidValue;  // d too wide
-  const dim3 grid((n_users + S::TU - 1) / S::TU);
-  if (reinterpret_cast<uintptr_t>(items_t) % 16 == 0) {
-    const cudaError_t e =
-        allow_smem(multiacc_sweep_kernel<S, P, tile::kRows16>, smem);
-    if (e != cudaSuccess) return (int)e;
-    multiacc_sweep_kernel<S, P, tile::kRows16><<<grid, S::THREADS, smem,
-                                                 stream>>>(
-        users, items_t, excl, cand_v, cand_i, ghost, n_users, d, i_pad,
-        block_i);
-  } else {
-    const cudaError_t e =
-        allow_smem(multiacc_sweep_kernel<S, P, tile::kRows4>, smem);
-    if (e != cudaSuccess) return (int)e;
-    multiacc_sweep_kernel<S, P, tile::kRows4><<<grid, S::THREADS, smem,
-                                                stream>>>(
-        users, items_t, excl, cand_v, cand_i, ghost, n_users, d, i_pad,
-        block_i);
-  }
-  return (int)cudaGetLastError();
+  using Staged = typename MultiShape<P == 1 ? 2 : P>::S;
+  return tile_smem<S, true>(d, 0) != 0
+             ? launch_multiacc<S, P, LAYOUT, true>(users, items_t, excl,
+                                                   cand_v, cand_i, ghost,
+                                                   n_users, d, i_pad,
+                                                   block_i, stream)
+             : launch_multiacc<Staged, P, LAYOUT, false>(
+                   users, items_t, excl, cand_v, cand_i, ghost, n_users, d,
+                   i_pad, block_i, stream);
+}
+
+template <int P>
+int launch_multiacc(const float* users, const float* items_t,
+                    const int8_t* excl, float* cand_v, int* cand_i,
+                    float* ghost, int n_users, int d, int i_pad, int block_i,
+                    cudaStream_t stream) {
+  return reinterpret_cast<uintptr_t>(items_t) % 16 == 0
+             ? launch_multiacc<P, tile::kRows16>(users, items_t, excl,
+                                                 cand_v, cand_i, ghost,
+                                                 n_users, d, i_pad, block_i,
+                                                 stream)
+             : launch_multiacc<P, tile::kRows4>(users, items_t, excl, cand_v,
+                                                cand_i, ghost, n_users, d,
+                                                i_pad, block_i, stream);
 }
 
 }  // namespace
@@ -202,8 +226,7 @@ int launch_multiacc(const float* users, const float* items_t,
 // Launches on `stream` (PyTorch's current stream), allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments outside the contract: P is one of
-// 1, 2, 4, 8, and d at most what keeps the block's shared memory within
-// 227 KB: 560 at P = 1, more at the other P).
+// 1, 2, 4, 8; d is any positive depth).
 extern "C" int coldrec_multiacc_sweep(const void* users, const void* items_t,
                                       const void* excl, void* cand_v,
                                       void* cand_i, void* ghost, int n_users,

@@ -282,12 +282,22 @@ struct BlockClock {
 };
 
 // Dynamic shared memory of a variant sweep on tile S at depth d: the walk's
-// (users resident) and the ids of TileSlots, or 0 where that exceeds what
-// a block may use beside `static_bytes` of static shared memory.
-template <class S>
+// (users resident or staged step by step) and the ids of TileSlots, or 0
+// where that exceeds what a block may use beside `static_bytes` of static
+// shared memory.
+template <class S, bool RESIDENT>
 inline size_t tile_smem(int d, size_t static_bytes) {
-  const size_t bytes = S::template smem_bytes<true>(d) + TileSlots<S>::ID_BYTES;
+  const size_t bytes =
+      S::template smem_bytes<RESIDENT>(d) + TileSlots<S>::ID_BYTES;
   return bytes + static_bytes <= SMEM_MAX ? bytes : 0;
+}
+
+// The ids of TileSlots follow the walk's shared memory.
+template <class S, bool RESIDENT>
+__device__ __forceinline__ int* tile_ids(float* smem, int d) {
+  return reinterpret_cast<int*>(
+      smem + (RESIDENT ? S::TU * d : 0) +
+      S::STAGES * S::template stage_floats<RESIDENT>());
 }
 
 }  // namespace coldrec_exp

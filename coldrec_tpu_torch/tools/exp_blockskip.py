@@ -80,22 +80,18 @@ class SkipLayout(NamedTuple):
     ctas: int
 
 
-def skip_layout(tile_u: int, b_pad: int,
-                cta_tile: Optional[int] = None) -> SkipLayout:
+def skip_layout(tile_u: int, b_pad: int) -> SkipLayout:
     """The kernel's layout for tiles of ``tile_u`` users (a positive
     multiple of 4 dividing ``b_pad``): the 16-user CTA tile up to tiles of
-    16 x 16 users, the 32-user one above, or the ``cta_tile`` given (one of
-    ``CTA_TILES``). A tile of more than 512 users needs a cluster of more
-    than ``MAX_CLUSTER`` CTAs, which the card refuses at launch."""
+    16 x 16 users, the 32-user one above. A tile of more than 512 users
+    needs a cluster of more than ``MAX_CLUSTER`` CTAs, which the card
+    refuses at launch."""
     _check_skip_args(tile_u, 0)
     if b_pad <= 0 or b_pad % tile_u:
         raise ValueError(f"b_pad={b_pad} must be a positive multiple of "
                          f"tile_u={tile_u}")
     small, large = CTA_TILES
-    if cta_tile is None:
-        cta_tile = small if tile_u <= small * MAX_CLUSTER else large
-    elif cta_tile not in CTA_TILES:
-        raise ValueError(f"cta_tile={cta_tile} must be one of {CTA_TILES}")
+    cta_tile = small if tile_u <= small * MAX_CLUSTER else large
     if tile_u <= cta_tile:
         cta_users = cta_tile // tile_u * tile_u
         return SkipLayout(cta_tile, cta_users, 1, -(-b_pad // cta_users))
@@ -105,16 +101,14 @@ def skip_layout(tile_u: int, b_pad: int,
 
 def skip_sweep(users: torch.Tensor, items_t: torch.Tensor,
                excl: torch.Tensor, tile_u: int, block_i: int,
-               floor_slot: int, cta_tile: Optional[int] = None):
+               floor_slot: int):
     """(cand_v (B, 1024) f32, cand_i (B, 1024) i32, ghost (B, 128) f32,
     skips (ceil(B / tile_u),) i32): the streaming sweep over blocks of
     ``block_i`` items, skipping the extraction of a block when every user of
     a ``tile_u`` tile has a block max below its floor, the min over lanes
     of slot ``floor_slot``. Users are padded with zero rows to a multiple
     of ``tile_u`` (pad rows take part in the predicate); their rows are not
-    returned. ``skips`` counts each tile's skipped blocks. ``cta_tile``
-    picks the kernel's CTA tile (``skip_layout``); no result depends on
-    it."""
+    returned. ``skips`` counts each tile's skipped blocks."""
     _check_sweep_inputs(users, items_t, excl, "skip_sweep")
     check_blocks(items_t.shape[1], block_i)
     _check_skip_args(tile_u, floor_slot)
@@ -129,7 +123,7 @@ def skip_sweep(users: torch.Tensor, items_t: torch.Tensor,
         cand_v, cand_i, ghost = empty_candidates(b_pad, users.device)
         skips = torch.empty(b_pad // tile_u, dtype=torch.int32,
                             device=users.device)
-        layout = skip_layout(tile_u, b_pad, cta_tile)
+        layout = skip_layout(tile_u, b_pad)
         launch("coldrec_skip_sweep", users.device, users.data_ptr(),
                items_t.data_ptr(), excl.data_ptr(), cand_v.data_ptr(),
                cand_i.data_ptr(), ghost.data_ptr(), skips.data_ptr(), b_pad,
@@ -143,12 +137,11 @@ def skip_sweep(users: torch.Tensor, items_t: torch.Tensor,
 skip_sweep.launches = 0
 
 
-def max_active_clusters(device, d: int, tile_u: int, b_pad: int,
-                        cta_tile: Optional[int] = None) -> int:
-    """How many clusters of ``skip_layout(tile_u, b_pad, cta_tile)`` the
-    card holds at once at depth ``d`` (cudaOccupancyMaxActiveClusters): a
-    grid of more runs in waves."""
-    layout = skip_layout(tile_u, b_pad, cta_tile)
+def max_active_clusters(device, d: int, tile_u: int, b_pad: int) -> int:
+    """How many clusters of ``skip_layout(tile_u, b_pad)`` the card holds
+    at once at depth ``d`` (cudaOccupancyMaxActiveClusters): a grid of more
+    runs in waves."""
+    layout = skip_layout(tile_u, b_pad)
     lib = load_library()
     with torch.cuda.device(device):
         n = lib.coldrec_skip_max_clusters(d, layout.cta_tile, layout.cluster)

@@ -245,6 +245,6 @@ def test_skip_layout_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         tebs.skip_layout(8, 12)
     with pytest.raises(ValueError):
-        tebs.skip_layout(8, 16, cta_tile=24)
-    assert tebs.skip_layout(256, 512, cta_tile=32).cluster == 8
+        tebs.skip_layout(0, 16)
+    assert tebs.skip_layout(512, 512) == (32, 32, 16, 16)  # the widest
     assert tebs.skip_layout(520, 520).cluster == 17  # the card refuses it

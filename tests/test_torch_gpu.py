@@ -289,10 +289,14 @@ def test_stream_kernel_matches_plain(cuda, block_i):
                                                   block_i))
 
 
+# d = 1200 is above what keeps the user tile resident beside the slot ids
+# (560 for multiacc at P = 1, 544 for skip at 16 users, ~490 at 32): the
+# walk stages the users step by step, as the production sweep does there
 @pytest.mark.parametrize("p_acc", tema.P_ACC)
 @pytest.mark.parametrize("block_i", [384, 1024])
-def test_multiacc_kernel_matches_plain(cuda, p_acc, block_i):
-    users, _, items_t, excl = _variant_tables(cuda, 37, 3072, 16, 7)
+@pytest.mark.parametrize("d", [16, 1200])
+def test_multiacc_kernel_matches_plain(cuda, p_acc, block_i, d):
+    users, _, items_t, excl = _variant_tables(cuda, 37, 3072, d, 7)
     got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
         users, items_t, excl, block_i, p_acc))
     _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
@@ -326,18 +330,21 @@ def _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, block_i):
 
 
 @pytest.mark.parametrize("tile_u,floor_slot", [(8, 0), (8, 7), (64, 0),
-                                               (256, 7)])
-def test_skip_kernel_matches_plain_where_skips_fire(cuda, tile_u, floor_slot):
-    users, _, items_t, excl = _variant_tables(cuda, 300, 4096, 8, 8,
+                                               (256, 7), (260, 0)])
+@pytest.mark.parametrize("d", [8, 1200])
+def test_skip_kernel_matches_plain_where_skips_fire(cuda, tile_u, floor_slot,
+                                                    d):
+    users, _, items_t, excl = _variant_tables(cuda, 300, 4096, d, 8,
                                               block_i=256)
     skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 256)
     assert int(skips.max()) > 0
 
 
-# 4 and 16: whole tiles in a CTA; 64 and 256: a cluster of 4 and of 16
+# 4 and 16: whole tiles in a CTA; 12: one tile in a CTA of 16 rows, the
+# rows past it zero and dominated; 64 and 256: a cluster of 4 and of 16
 # CTAs; 260: the 32-user CTA tile in a cluster of 9, the last CTA partly
-# filled. 1040 users are no multiple of 64, 256 or 260.
-@pytest.mark.parametrize("tile_u", [4, 16, 64, 256, 260])
+# filled. 1040 users are no multiple of 12, 64, 256 or 260.
+@pytest.mark.parametrize("tile_u", [4, 12, 16, 64, 256, 260])
 @pytest.mark.parametrize("floor_slot", [0, 7])
 @pytest.mark.parametrize("table", ["falling", "iid"])
 def test_skip_kernel_layout_grid(cuda, tile_u, floor_slot, table):
@@ -347,18 +354,6 @@ def test_skip_kernel_layout_grid(cuda, tile_u, floor_slot, table):
     skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 512)
     if falling and floor_slot == 0:
         assert int(skips.max()) > 0
-
-
-@pytest.mark.parametrize("cta_tile", tebs.CTA_TILES)
-def test_skip_kernel_either_cta_tile(cuda, cta_tile):
-    """The 32-user CTA tile (a cluster of 8 at tile_u 256) gives the same
-    result as the 16-user one."""
-    users, _, items_t, excl = _variant_tables(cuda, 512, 4096, 8, 10,
-                                              block_i=256)
-    got = tebs.skip_sweep(users, items_t, excl, 256, 256, 0, cta_tile)
-    ref = tebs.skip_sweep_reference(users, items_t, excl, 256, 256, 0)
-    _assert_same(got, ref)
-    assert int(got[3].sum()) > 0
 
 
 def test_skip_kernel_refuses_a_cluster_above_16(cuda):
