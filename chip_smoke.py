@@ -34,18 +34,24 @@ Phases, each printed with its seconds:
               (``exp_retrieval_kernels.main`` at the tools' width of 2048
               users x 270,336 items, ``exp_multiacc.check`` and one
               ``exp_blockskip.check_exact`` regime at a small size); then
-              every variant kernel held bit for bit against its plain
+              every variant kernel held bit for bit against its own plain
               version on integer tables at that width: dot in both layouts,
               stream at block_i 2048 and 8192, multiacc at P = 1, 2, 4, 8,
               skip at tile_u 64 and 256 with floors rv[0] and rv[7], and a
-              table on which skips fire (count > 0 and equal);
+              table on which skips fire (count > 0 and equal); then on an
+              integer table with NaN item rows (NaN equal to NaN at the
+              same places): dot in both layouts, stream at both block_i,
+              multiacc at every P at block_i 8192 and at 384 (3 slices, no
+              multiple of P > 1), skip at both tile_u;
   7. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep and the merge): the
               kernel, its plain version and one library yardstick, beside
-              the least time the card could take; timing-variants first
-              logs each kernel's registers and spill bytes (the build's
-              ``-Xptxas -v``), the skip kernel's resident clusters per
-              layout, and every P and tile_u time.
+              the least time the card could take. The merge is timed alone
+              as well (100 launches in one CUDA graph: its device time) at
+              512 users x the kernel's parts and 2048 users x 2 parts;
+              timing-variants first logs each kernel's registers and spill
+              bytes (the build's ``-Xptxas -v``), the skip kernel's
+              resident clusters per layout, and every P and tile_u time.
 
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
@@ -104,7 +110,15 @@ VAR_ITEMS = 270_336
 VAR_BLOCKS = (2048, 8192)  # exp_retrieval_kernels' block_i, the others'
 VAR_TILES = (64, 256)  # exp_blockskip's tile_u grid
 INT_MAX = 64  # integer tables in [-64, 64]: every d=64 sum is exact in fp32
+# NaN item rows of the variants' NaN table, beside random ones: 259 is lane
+# class 3 in slice 2 of the first block of 384 items or more (the finite
+# candidates of slices 0 and 1 come ahead of it), 650 lies in slice 2 of
+# the second 384-item block, which starts at an odd item group, and 1283 is
+# a second NaN of class 3.
+NAN_ROWS = (259, 650, 1029, 1283)
+ODD_BLOCK = 384  # 3 slices a block: no multiple of P > 1
 SERVE_USERS = 512  # users per serving request
+CLOCKS = "clocks.sm,power.draw"  # logged around the variants' times
 WRAPPERS = {
     "fused_sweep": fused_sweep,
     "merge_parts": merge_parts,
@@ -135,10 +149,9 @@ def run_phase(name: str, fn, *args, **kwargs):
     return out
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -515,11 +528,17 @@ def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
 
 
 def time_merge(device, n_users=SERVE_USERS, n_items=BX[1], d=D, seed=0,
-               reps=20):
-    """CUDA-event milliseconds of the merge at the serving shape, on the
-    plain per-part sweeps of N(0,1) tables at the kernel's part count, with
-    its plain version's and the bound (bytes: every part read once, the
-    result written once). No single library call merges sorted slots."""
+               reps=20, parts=None, graph_reps=100):
+    """The merge at one shape, on the plain per-part sweeps of N(0,1)
+    tables at the kernel's part count for this batch (at least 2) or at
+    ``parts``: its device time ("ms": ``graph_reps`` launches in one CUDA
+    graph), its time per call as the main path pays it ("call_ms": CUDA
+    events around ``reps`` calls in a row, the host's checks, allocations
+    and ctypes call included), its plain version's, the library
+    yardstick's (``torch.topk`` of 8 over each class's parts x 8 values
+    plus ``amax`` of the ghosts, in one graph as the kernel: no ids and no
+    tie order, so less work) and the bound (bytes: every part read once,
+    the result written once)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     users = torch.as_tensor(
@@ -528,27 +547,40 @@ def time_merge(device, n_users=SERVE_USERS, n_items=BX[1], d=D, seed=0,
         rng.standard_normal((n_items, d), dtype=np.float32), device=device)
     items_t, excl_row = pad_items(items, torch.zeros(n_items, dtype=torch.bool,
                                                      device=device))
-    parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
+    if parts is None:
+        parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
     pv, pi, pg = sweep_parts_reference(users, items_t, excl_row, parts)
-    ms = erk.time_ms(lambda: merge_parts(pv, pi, pg), reps, device,
-                     repeats=1)
+    ms = erk.graph_ms(lambda: merge_parts(pv, pi, pg), graph_reps, device)
+    call_ms = erk.time_ms(lambda: merge_parts(pv, pi, pg), reps, device,
+                          repeats=1)
     plain_ms = erk.time_ms(lambda: merge_parts_reference(pv, pi, pg), 3,
                            device, repeats=1)
+    per_class = pv.view(parts, n_users, SLOTS, LANES).permute(
+        1, 3, 0, 2).reshape(n_users, LANES, parts * SLOTS)
+    lib_ms = erk.graph_ms(
+        lambda: (torch.topk(per_class, SLOTS, dim=2), pg.amax(0)),
+        graph_reps, device)
     row_bytes = CANDIDATES * 8 + LANES * 4
     bound, by = sweep_bound(0.0, (parts + 1) * n_users * row_bytes)
-    log(f"  merge_parts {n_users} users x {parts} parts: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound, "bound_by": by, "parts": parts}
+    log(f"  merge_parts {n_users} users x {parts} parts: kernel {ms:.4f} ms "
+        f"device ({graph_reps} in a graph), {call_ms:.4f} ms per call "
+        f"({reps} calls in a row); plain {plain_ms:.3f} ms; library "
+        f"(topk(8) + amax) {lib_ms:.4f} ms; bound {bound:.4f} ms ({by})")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "parts": parts}
 
 
 # ----------------------------------------------------- the variant kernels
-def int_tables(device, n_users, n_items, d, seed, block_i=None):
+def int_tables(device, n_users, n_items, d, seed, block_i=None,
+               nan_items=0):
     """Integer tables in [-INT_MAX, INT_MAX] on ``device`` with 20% of the
     items excluded: (users, items (I, d), items_t (d, I), excl). With
     ``block_i``: users in [1, INT_MAX] and the items of block j scaled by
     n_blocks - j, so that later blocks are dominated and skips fire (scores
-    stay below 2^24, so every sum is still exact)."""
+    stay below 2^24, so every sum is still exact). With ``nan_items``: the
+    ``NAN_ROWS`` (not excluded) and that many random item rows are NaN (an
+    excluded one scores NEG)."""
     rng = np.random.default_rng(seed)
     users = rng.integers(1 if block_i else -INT_MAX, INT_MAX + 1,
                          (n_users, d)).astype(np.float32)
@@ -558,6 +590,10 @@ def int_tables(device, n_users, n_items, d, seed, block_i=None):
         items *= np.repeat(np.arange(n_items // block_i, 0, -1),
                            block_i).astype(np.float32)[:, None]
     excl = (rng.random(n_items) < 0.2).astype(np.int8)
+    if nan_items:
+        items[rng.choice(n_items, nan_items, replace=False)] = np.nan
+        items[list(NAN_ROWS)] = np.nan
+        excl[list(NAN_ROWS)] = 0
     users, items, excl = (torch.as_tensor(a, device=device)
                           for a in (users, items, excl))
     return users, items, items.T.contiguous(), excl
@@ -632,9 +668,10 @@ def variants_run(device, n_users=2048, n_items=VAR_ITEMS, d=D,
         refs[bi] = erk.stream_sweep_reference(users, items_t, excl, bi)
         hold("stream_sweep", f"block_i={bi}",
              erk.stream_sweep(users, items_t, excl, bi), refs[bi])
-    for p in ema.P_ACC:  # multiacc's plain version is the stream sweep's
+    for p in ema.P_ACC:
         hold("multiacc_sweep", f"P={p} block_i={big}",
-             ema.multiacc_sweep(users, items_t, excl, big, p), refs[big])
+             ema.multiacc_sweep(users, items_t, excl, big, p),
+             ema.multiacc_sweep_reference(users, items_t, excl, big, p))
     for tile_u in tiles:
         for floor_slot in (0, SLOTS - 1):
             got, ref = skip_pair(users, items_t, excl, tile_u, big,
@@ -651,6 +688,36 @@ def variants_run(device, n_users=2048, n_items=VAR_ITEMS, d=D,
         if fired <= 0:
             raise AssertionError(f"tile_u={tile_u}: no block was skipped on "
                                  "the falling table")
+
+    # the NaN table: each variant keeps NaN as its own JAX tool does
+    users, items, items_t, excl = int_tables(device, n_users, n_items, d,
+                                             seed + 2, nan_items=40)
+    for transposed, tab in ((False, items), (True, items_t)):
+        hold("dot_sweep", f"NaN table transposed={transposed}",
+             [erk.dot_sweep(users, tab, transposed)],
+             [erk.dot_sweep_reference(users, tab, transposed)])
+    nan_refs = {}
+    for bi in blocks:
+        ref = erk.stream_sweep_reference(users, items_t, excl, bi)
+        if not bool(ref[2].isnan().any()):
+            raise AssertionError("the NaN table gives no NaN ghost")
+        nan_refs[bi] = ref
+        hold("stream_sweep", f"NaN table block_i={bi} "
+             f"({int(ref[2].isnan().sum())} NaN ghosts)",
+             erk.stream_sweep(users, items_t, excl, bi), ref)
+    for bi in (big, ODD_BLOCK):
+        for p in ema.P_ACC:
+            if bi == ODD_BLOCK and p == 1:
+                continue  # one chain: no block-relative index to get wrong
+            ref = ema.multiacc_sweep_reference(users, items_t, excl, bi, p)
+            as_stream = bi in nan_refs and all(map(same, ref, nan_refs[bi]))
+            hold("multiacc_sweep", f"NaN table P={p} block_i={bi} (equals "
+                 f"stream's: {as_stream})",
+                 ema.multiacc_sweep(users, items_t, excl, bi, p), ref)
+    for tile_u in tiles:
+        got, ref = skip_pair(users, items_t, excl, tile_u, big, 0)
+        hold("skip_sweep", f"NaN table tile_u={tile_u} floor=rv[0] "
+             f"skips {int(got[3].sum())}", got, ref)
     _sync(device)
     log(f"  kernel vs plain {time.perf_counter() - t:.2f} s")
     return {k: {"launches": launches[k], "max_abs_err": errs[k]}
@@ -673,11 +740,17 @@ def kernel_registers(ptxas: str) -> None:
     if not ptxas:
         log("  registers: not reported (library already built)")
         return
-    for name in ("fused_sweep_kernel", "merge_parts_kernel",
-                 "dot_sweep_kernel", "stream_sweep_kernel",
-                 "multiacc_sweep_kernel", "skip_sweep_kernel"):
+    # stream and multiacc are instances of one template, told apart by
+    # their chain
+    for name, kernel in (
+            ("fused_sweep", "fused_sweep_kernel"),
+            ("merge_parts", "merge_parts_kernel"),
+            ("dot_sweep", "dot_sweep_kernel"),
+            ("stream_sweep", r"chain_sweep_kernel\w*StreamChain"),
+            ("multiacc_sweep", r"chain_sweep_kernel\w*MaxChain"),
+            ("skip_sweep", "skip_sweep_kernel")):
         log(f"  registers/spill bytes {name}: "
-            f"{tile_shapes.registers(ptxas, name)}")
+            f"{tile_shapes.registers(ptxas, kernel)}")
 
 
 def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
@@ -691,6 +764,7 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
     device = torch.device(device)
     kernel_registers(ptxas)
     if device.type == "cuda":
+        log(f"  SM clock, power draw before: {smi_line(CLOCKS)}")
         for tile_u in tiles:
             lay = ebs.skip_layout(tile_u, n_users)
             n = ebs.max_active_clusters(device, d, tile_u, n_users)
@@ -706,8 +780,8 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
     excl = torch.as_tensor((rng.random(n_items) < 0.2).astype(np.int8),
                            device=device)
 
-    def ms(fn, n=reps):
-        return erk.time_ms(fn, n, device, repeats=1)
+    def ms(fn, n=reps, repeats=3):
+        return erk.time_ms(fn, n, device, repeats=repeats)
 
     flops = 2.0 * n_users * n_items * d
     tables = n_users * d * 4 + n_items * d * 4
@@ -739,7 +813,8 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
         stream[bi] = ms(lambda: erk.stream_sweep(users, items_t, excl, bi))
         log(f"  stream_sweep block_i={bi}: {stream[bi]:.3f} ms")
     row("stream_sweep", stream[small],
-        ms(lambda: erk.stream_sweep_reference(users, items_t, excl, small), 1),
+        ms(lambda: erk.stream_sweep_reference(users, items_t, excl, small),
+           1, 1),
         topk_ms, tables + cands,
         f"block_i={small}; library = matmul + topk({k + r}), less work")
     multi = {}
@@ -748,7 +823,7 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
         log(f"  multiacc_sweep P={p} block_i={big}: {multi[p]:.3f} ms")
     row("multiacc_sweep", multi[p_row],
         ms(lambda: ema.multiacc_sweep_reference(users, items_t, excl, big,
-                                                p_row), 1),
+                                                p_row), 1, 1),
         topk_ms, tables + cands,
         f"P={p_row} block_i={big}; library = matmul + topk({k + r}), less "
         "work")
@@ -760,10 +835,12 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
             f"{skip[tile_u]:.3f} ms")
     tile_u = tiles[-1]
     row("skip_sweep", skip[tile_u],
-        ms(lambda: skip_plain(users, items_t, excl, tile_u, big, 0), 1),
+        ms(lambda: skip_plain(users, items_t, excl, tile_u, big, 0), 1, 1),
         topk_ms, tables + cands + n_users // tile_u * 4,
         f"tile_u={tile_u} floor=rv[0] block_i={big}; library = matmul + "
         f"topk({k + r}), less work")
+    if device.type == "cuda":
+        log(f"  SM clock, power draw after: {smi_line(CLOCKS)}")
     return rows
 
 
@@ -796,6 +873,7 @@ def main() -> int:
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}: {r['flops']:.3e} FLOP, {r['bytes']:.3e} B)")
     tm = time_merge(device)
+    time_merge(device, n_users=2048, parts=2)
     tv = run_phase("timing-variants", time_variants, device,
                    ptxas=built.ptxas)
 
@@ -819,8 +897,8 @@ def main() -> int:
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
         "launches": launches["merge_parts"],
         "max_abs_err": max(errs[1]["merge_err"], exact["merge_parts"]),
-        **{k: tm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+        **{k: tm[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")},
     }]
     for name, source, replaces in (
             ("dot_sweep", "exp_retrieval_kernels.cu",

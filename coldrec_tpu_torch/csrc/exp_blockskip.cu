@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel tools/exp_blockskip.py::_skip_kernel (:57),
 // launched by _skip_sweep (:126, pallas_call :132). Contract as in
-// stream_sweep_kernel (exp_retrieval_kernels.cu), over users padded to a
+// coldrec_stream_sweep (exp_retrieval_kernels.cu; the stream chain, so a
+// NaN score turns its class's ghost NaN), over users padded to a
 // multiple of tile_u (pad rows take part), plus, at each block of block_i
 // items, for every user u of a tile:
 //   - bmax[u] = the block's max score (excluded items score NEG; NaN if a
@@ -11,7 +12,8 @@
 //     every class has filled that slot);
 //   - if bmax[u] < floor[u] for EVERY user of the tile, the block is
 //     skipped: the block's top-2 is dropped, the ghost of every lane class
-//     takes bmax[u], and the tile's counter skips[tile] goes up by one;
+//     takes bmax[u] (a NaN ghost stays NaN), and the tile's counter
+//     skips[tile] goes up by one;
 //   - otherwise the block's top-2 goes through the stream sweep's cascade.
 // tile_u changes the result (the predicate is over the whole tile).
 //
@@ -126,7 +128,7 @@ struct SkipEpilogue {
       float f = -INIT_NEG;
 #pragma unroll
       for (int e = 0; e < RI; ++e) {
-        m = fmaxf(m, t[u][e].m1);  // the pair's block max (NaN dropped)
+        m = fmaxf(m, t[u][e].m1);  // the pair's block max (m1 is no NaN)
         f = fminf(f, slots.value(u, e, floor_slot));
       }
       if ((nan_bits >> u) & 1u) m = __int_as_float(0x7fffffff);
@@ -189,7 +191,7 @@ struct SkipEpilogue {
 #pragma unroll
       for (int e = 0; e < RI; ++e) {
         if (skip) {
-          slots.gh[u][e] = fmaxf(slots.gh[u][e], bm);
+          slots.gh[u][e] = fmax_nan(slots.gh[u][e], bm);  // NaN sticks
         } else {
           slots.insert(u, e, t[u][e], clock.base + S::item(ig, e));
         }
@@ -211,7 +213,7 @@ struct SkipEpilogue {
         for (int e = 0; e < RI; ++e) {
           const float v = ex[q][e] ? NEG : acc[q][u][e];
           if (v != v) nan_bits |= 1u << u;
-          t[u][e].push(v, s);
+          StreamChain::push(t[u][e], v, s);
         }
       }
       if (clock.tick()) close();

@@ -2,24 +2,28 @@
 // TPU kernel's streaming top-2 sweep.
 //
 // Replace the Pallas kernels of tools/exp_retrieval_kernels.py:
-//   dot_sweep_kernel    <- _dot_kernel (:55), launched by dot_sweep (:77,
-//                          pallas_call :83)
-//   stream_sweep_kernel <- _stream_kernel (:94), launched by stream_sweep
-//                          (:148, pallas_call :152)
+//   dot_sweep_kernel   <- _dot_kernel (:55), launched by dot_sweep (:77,
+//                         pallas_call :83)
+//   coldrec_stream_sweep (chain_sweep_kernel<..., 1, StreamChain, ...>)
+//                      <- _stream_kernel (:94), launched by stream_sweep
+//                         (:148, pallas_call :152)
 // Contracts, as in coldrec_tpu_torch/tools/exp_retrieval_kernels.py:
 //   dot     in   users (B, d) f32; items (I_pad, d) f32, or (d, I_pad) f32
 //                when transposed
 //           out  (B, 128) f32: per user and lane class c (item id mod 128)
-//                the max score over the items of that class. No exclusion;
-//                zero pad items count.
+//                the max score over the items of that class (NaN where one
+//                is NaN, as jnp.maximum gives). No exclusion; zero pad
+//                items count.
 //   stream  in   users (B, d), items_t (d, I_pad) f32, excl (I_pad,) int8
 //                (nonzero: score -> NEG), block_i (a multiple of 128 that
 //                divides I_pad)
 //           out  cand_v, cand_i (B, 1024), ghost (B, 128), the layout of
 //                retrieval.cu. Per block of block_i items each lane class
-//                keeps its top-2 (the 3rd-best value goes into the ghost),
-//                then both go into the 8 sorted slots with the TPU's tie
-//                rules (sweep_common.cuh). block_i changes the result.
+//                keeps its top-2 (the 3rd-best value into the ghost), then
+//                both go into the 8 sorted slots with the TPU's tie rules
+//                (sweep_common.cuh). A NaN score never enters the top-2 and
+//                turns the class's ghost NaN (StreamChain). block_i changes
+//                the result.
 //
 // What bounds them on an H100: the products. At B=2048, I_pad=270,336,
 // d=64 a sweep is 2*B*I*d = 7.09e10 fp32 operations (1.058 ms at
@@ -40,15 +44,14 @@
 //     The item range is split into parts to fill the SMs (as in
 //     retrieval.cu); with more than one part a second kernel takes the max
 //     over the parts' (B, 128) outputs.
-//   - stream (simple first, the structure of the first retrieval sweep): one
-//     block of 128 threads per tile of TILE_U users; thread c owns lane
-//     class c for the tile's users and walks the items of its class in
-//     increasing id order; the user tile sits in shared memory as
-//     (d, TILE_U) and is read as broadcast float4s. Per item: TILE_U FFMA
-//     chains of length d, then the block-local top-2 chain per user
-//     (5 registers), and at the end of each block the cascade into the
-//     user's 8 slots, in registers. Every block streams the whole item
-//     table, mostly from L2.
+//   - stream: the chain sweep of sweep_common.cuh at P = 1 with the stream
+//     chain (launch_chain<1, StreamChain>), the epilogue and tile that
+//     multiacc_sweep runs at P = 1 (MultiP1: 16 users a block, 8 users x 1
+//     class of each of 8 groups a thread; the users staged step by step
+//     where d is too wide for the resident tile). Each thread keeps its
+//     pairs' chains, slot values and ghosts in registers and their slot
+//     ids in shared memory (TileSlots); block ends are counted per group
+//     (BlockClock), so any valid block_i runs.
 #include "sweep_common.cuh"
 #include "sweep_tile.cuh"
 
@@ -56,8 +59,6 @@ namespace {
 
 using namespace coldrec_exp;
 namespace tile = coldrec_tile;
-
-constexpr int TILE_U = 4;  // users per block of the stream sweep
 
 // The dot ceiling's tile: with no top-8 to hold, a thread takes a wider
 // register tile than retrieval.cu's (8 users x 4 items, 128 users and 512
@@ -79,7 +80,7 @@ struct MaxEpilogue {
       for (int u = 0; u < DotTile::RU; ++u) {
 #pragma unroll
         for (int e = 0; e < DotTile::RI; ++e) {
-          mx[u][e] = fmaxf(mx[u][e], acc[q][u][e]);
+          mx[u][e] = fmax_nan(mx[u][e], acc[q][u][e]);
         }
       }
     }
@@ -128,64 +129,10 @@ dot_merge_kernel(const float* __restrict__ part_out, float* __restrict__ out,
   const size_t at = (size_t)blockIdx.x * LANES + threadIdx.x;
   const size_t stride = (size_t)n_users * LANES;
   float m = part_out[at];
-  for (int p = 1; p < parts; ++p) m = fmaxf(m, part_out[p * stride + at]);
+  for (int p = 1; p < parts; ++p) {
+    m = fmax_nan(m, part_out[p * stride + at]);
+  }
   out[at] = m;
-}
-
-template <int TU>
-__global__ void __launch_bounds__(LANES)
-stream_sweep_kernel(const float* __restrict__ users,
-                    const float* __restrict__ items_t,
-                    const int8_t* __restrict__ excl,
-                    float* __restrict__ cand_v, int* __restrict__ cand_i,
-                    float* __restrict__ ghost, int n_users, int d, int i_pad,
-                    int block_i) {
-  extern __shared__ float4 smem4[];
-  float* su = reinterpret_cast<float*>(smem4);  // (d, TU)
-  const int c = threadIdx.x;
-  const int u0 = blockIdx.x * TU;
-  load_users(su, users, u0, TU, n_users, d, c, LANES);
-  __syncthreads();
-
-  float rv[TU][SLOTS];
-  int ri[TU][SLOTS];
-  float gh[TU];
-#pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    gh[u] = INIT_NEG;
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      rv[u][s] = INIT_NEG;
-      ri[u][s] = 0;
-    }
-  }
-
-  const int slices = block_i / LANES;
-  for (int base = 0; base < i_pad; base += block_i) {
-    Top2 t[TU];
-#pragma unroll
-    for (int u = 0; u < TU; ++u) t[u].init();
-    for (int s = 0; s < slices; ++s) {
-      const int item = base + s * LANES + c;
-      float acc[TU];
-      dot_column<TU>(items_t + item, (size_t)i_pad, su, TU, 0, d, acc);
-      const bool ex = excl[item] != 0;
-#pragma unroll
-      for (int u = 0; u < TU; ++u) t[u].push(ex ? NEG : acc[u], s);
-    }
-#pragma unroll
-    for (int u = 0; u < TU; ++u) {
-      insert_block(rv[u], ri[u], gh[u], t[u], base + c);
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < TU; ++u) {
-    if (u0 + u < n_users) {
-      store_slots(cand_v, cand_i, ghost, (size_t)(u0 + u), c, rv[u], ri[u],
-                  gh[u]);
-    }
-  }
 }
 
 template <int LAYOUT, bool RESIDENT>
@@ -273,19 +220,7 @@ extern "C" int coldrec_stream_sweep(const void* users, const void* items_t,
                                     void* cand_i, void* ghost, int n_users,
                                     int d, int i_pad, int block_i,
                                     void* stream) {
-  if (d <= 0 || !valid_blocks(i_pad, block_i)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_users <= 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * TILE_U * d;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(stream_sweep_kernel<TILE_U>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n_users + TILE_U - 1) / TILE_U);
-  stream_sweep_kernel<TILE_U><<<grid, LANES, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(users), static_cast<const float*>(items_t),
-      static_cast<const int8_t*>(excl), static_cast<float*>(cand_v),
-      static_cast<int*>(cand_i), static_cast<float*>(ghost), n_users, d,
-      i_pad, block_i);
-  return (int)cudaGetLastError();
+  return launch_chain<1, StreamChain>(users, items_t, excl, cand_v, cand_i,
+                                      ghost, n_users, d, i_pad, block_i,
+                                      stream);
 }

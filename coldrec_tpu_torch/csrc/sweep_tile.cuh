@@ -340,6 +340,14 @@ __device__ __forceinline__ float fmax_nan(float a, float b) {
   return r;
 }
 
+// min(a, b) that is NaN where either is NaN (PTX min.NaN, sm_80+), as
+// jnp.minimum is.
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Part p of `parts` covers groups [part_lo(p), part_lo(p + 1)).
 __device__ __forceinline__ int part_lo(int groups, int parts, int p) {
   return (int)(((long long)groups * p) / parts);

@@ -12,10 +12,16 @@ tile of ``csrc/sweep_tile.cuh``, the one the production sweep runs on; P
 changes the chains and, through their registers, the tile's users per
 CTA.
 
-The merge is value- and id-identical to the single chain, so
-``multiacc_sweep`` computes the same function as
-``exp_retrieval_kernels.stream_sweep`` for every P, and its plain version
-is that sweep's.
+On tables without NaN the merge is value- and id-identical to the single
+chain, so ``multiacc_sweep`` then computes the same function as
+``exp_retrieval_kernels.stream_sweep`` for every P. A NaN score does not
+take the same way: the JAX kernel writes its chain with ``maximum`` and
+``minimum``, so a NaN makes its chain NaN for the rest of the block (it
+adds nothing to the slots and turns the ghost NaN), and ``_merge_two``
+lets a NaN in the higher chain win. On NaN tables the result therefore
+depends on P and on which slices share a chain (slice s of a block feeds
+chain s % P), as in JAX; the plain version and the kernel follow that
+arithmetic.
 
 Usage:
     python -m coldrec_tpu_torch.tools.exp_multiacc [--check] [--users 4096]
@@ -40,7 +46,7 @@ from ..ops.cuda.retrieval import (
     _check_sweep_inputs, _resolve, _round_up, empty_candidates, fused_sweep,
 )
 from .exp_retrieval_kernels import (
-    check_blocks, device_name, kernel_device, stream_sweep,
+    check_blocks, device_name, kernel_device, max_push, stream_sweep,
     stream_sweep_reference, time_ms,
 )
 
@@ -75,9 +81,11 @@ multiacc_sweep.launches = 0
 
 
 def multiacc_sweep_reference(users, items_t, excl, block_i, p_acc):
-    """Plain version: the grouping changes no value and no id, so this is
-    the single-chain sweep's plain version for every ``p_acc``."""
-    return stream_sweep_reference(users, items_t, excl, block_i)
+    """Plain version: the JAX kernel's arithmetic, literally (``max_push``
+    chains fed slice s % ``p_acc`` of each block, ``merge_two``), vectorised
+    over (B, 128) and looping over the slices."""
+    return stream_sweep_reference(users, items_t, excl, block_i, p_acc,
+                                  max_push)
 
 
 def make_inputs(n_users, n_items, tile_u, block_i, seed=0, device="cuda"):
@@ -109,8 +117,9 @@ def make_inputs(n_users, n_items, tile_u, block_i, seed=0, device="cuda"):
 
 def check(n_users=1024, n_items=24576, tile_u=256, block_i=2048,
           device="cuda"):
-    """multiacc at P = 2 and 4 must equal the stream sweep bit for bit, and
-    so must their resolved top-k lists and exactness flags."""
+    """multiacc at P = 2 and 4 must equal the stream sweep bit for bit (the
+    tables hold no NaN), and so must their resolved top-k lists and
+    exactness flags."""
     users, items_t, excl, rated = make_inputs(n_users, n_items, tile_u,
                                               block_i, device=device)
     ref = stream_sweep(users, items_t, excl, block_i)

@@ -127,21 +127,79 @@ def dot_sweep_reference(users: torch.Tensor, items: torch.Tensor,
 
 
 # ----------------------------------------------------------------- stream2d
-def block_tops(z: torch.Tensor):
-    """The TPU kernel's per-block extraction of a (B, block_i) score block:
-    per lane class, over its slices in order with a strict ``>`` (the
-    earliest slice wins a tie), the top-2 values m1 >= m2 at slices a1, a2
-    and m3, the largest value not kept. A stable descending sort over the
-    slices gives the same three. Returns (m1, a1, m2, a2, m3), (B, 128)."""
+# The block-local top-2 chains of the TPU kernels, over (B, 128) lane
+# classes: a chain is (m1, m2, m3, a1, a2), values m1 >= m2 at slice
+# indices a1, a2 and m3, the largest value dropped. Each variant keeps NaN
+# as its own JAX tool's arithmetic does; ``>`` and ``==`` on NaN are false.
+def new_chain(b: int, device):
+    m = torch.full((b, LANES), INIT_NEG, dtype=torch.float32, device=device)
+    a = torch.zeros((b, LANES), dtype=torch.int64, device=device)
+    return m, m, m, a, a
+
+
+def stream_push(chain, c, s: int):
+    """The stream chain (``tools/exp_retrieval_kernels.py::_stream_kernel``,
+    also the skip kernel's) for the values c of slice s: strict ``>``, so
+    the earliest slice wins a tie, and a NaN never enters m1 or m2 but
+    turns m3 NaN (``maximum``)."""
+    m1, m2, m3, a1, a2 = chain
+    gt1, gt2 = c > m1, c > m2
+    return (torch.where(gt1, c, m1),
+            torch.where(gt1, m1, torch.where(gt2, c, m2)),
+            torch.maximum(m3, torch.where(gt2, m2, c)),
+            torch.where(gt1, s, a1),
+            torch.where(gt1, a1, torch.where(gt2, s, a2)))
+
+
+def max_push(chain, c, s: int):
+    """The multiacc chain (``tools/exp_multiacc.py::_multiacc_kernel``),
+    written with ``maximum`` and ``minimum``: the same values as the stream
+    chain on finite scores, but a NaN makes m1, m2 and m3 NaN for the rest
+    of the block (ids stay as they were)."""
+    m1, m2, m3, a1, a2 = chain
+    gt1, gt2 = c > m1, c > m2
+    return (torch.maximum(c, m1),
+            torch.where(gt1, m1, torch.maximum(c, m2)),
+            torch.maximum(m3, torch.minimum(c, m2)),
+            torch.where(gt1, s, a1),
+            torch.where(gt1, a1, torch.where(gt2, s, a2)))
+
+
+def merge_two(ca, cb):
+    """``tools/exp_multiacc.py::_merge_two``: the top-2 of two chains over
+    disjoint slices, equal values keeping the lower slice. On a NaN m1 it
+    is not symmetric: the second chain wins (a NaN there wins, a NaN in the
+    first loses)."""
+    m1a, m2a, m3a, a1a, a2a = ca
+    m1b, m2b, m3b, a1b, a2b = cb
+    w = (m1a > m1b) | ((m1a == m1b) & (a1a < a1b))
+    lo1, lo1a = torch.where(w, m1b, m1a), torch.where(w, a1b, a1a)
+    wm2, wm2a = torch.where(w, m2a, m2b), torch.where(w, a2a, a2b)
+    w2 = (lo1 > wm2) | ((lo1 == wm2) & (lo1a < wm2a))
+    d2 = torch.where(w2, wm2, lo1)  # the third of the four tops, dropped
+    lm2 = torch.where(w, m2b, m2a)  # the losing chain's second, dropped
+    return (torch.where(w, m1a, m1b), torch.where(w2, lo1, wm2),
+            torch.maximum(torch.maximum(m3a, m3b), torch.maximum(d2, lm2)),
+            torch.where(w, a1a, a1b), torch.where(w2, lo1a, wm2a))
+
+
+def block_tops(z: torch.Tensor, p_acc: int = 1, push=stream_push):
+    """A TPU kernel's extraction of a (B, block_i) score block, literally:
+    slice s (items s*128 .. s*128+127 of the block, in order) feeds chain
+    s % p_acc through ``push``, then the chains are merged pairwise,
+    (0, 1), (2, 3), ... and then the pairs' results, with ``merge_two``.
+    Returns (m1, a1, m2, a2, m3), (B, 128) each."""
     b, block_i = z.shape
-    slices = block_i // LANES
-    zz = z.view(b, slices, LANES)
-    if slices < 3:  # the chain starts from INIT_NEG (which no slot takes)
-        pad = torch.full((b, 3 - slices, LANES), INIT_NEG, dtype=z.dtype,
-                         device=z.device)
-        zz = torch.cat([zz, pad], dim=1)
-    v, a = zz.sort(dim=1, descending=True, stable=True)
-    return v[:, 0], a[:, 0], v[:, 1], a[:, 1], v[:, 2]
+    zz = z.view(b, block_i // LANES, LANES)
+    chains = [new_chain(b, z.device) for _ in range(p_acc)]
+    for s in range(zz.shape[1]):
+        chains[s % p_acc] = push(chains[s % p_acc], zz[:, s], s)
+    while len(chains) > 1:
+        chains = [merge_two(chains[i], chains[i + 1])
+                  for i in range(0, len(chains) - 1, 2)] + (
+                      [chains[-1]] if len(chains) % 2 else [])
+    m1, m2, m3, a1, a2 = chains[0]
+    return m1, a1, m2, a2, m3
 
 
 def merge_slots(rv, ri, gh, m1, i1, m2, i2, m3):
@@ -180,10 +238,11 @@ def block_scores(users, items_t, excluded, j: int, block_i: int):
         excluded[None, cols], NEG)
 
 
-def block_candidates(z, j: int, block_i: int):
-    """(m1, id1, m2, id2, m3) of block j's scores: ids are
-    j*block_i + slice*128 + lane."""
-    m1, a1, m2, a2, m3 = block_tops(z)
+def block_candidates(z, j: int, block_i: int, p_acc: int = 1,
+                     push=stream_push):
+    """(m1, id1, m2, id2, m3) of block j's scores (``block_tops``): ids
+    are j*block_i + slice*128 + lane."""
+    m1, a1, m2, a2, m3 = block_tops(z, p_acc, push)
     base = j * block_i + torch.arange(LANES, device=z.device)
     return m1, base + a1 * LANES, m2, base + a2 * LANES, m3
 
@@ -219,16 +278,17 @@ def stream_sweep(users: torch.Tensor, items_t: torch.Tensor,
 stream_sweep.launches = 0
 
 
-def stream_sweep_reference(users, items_t, excl, block_i):
-    """Plain version: per block, the top-3 of each lane class by a stable
-    sort over its slices, then the TPU cascade of m1 and m2 into the
-    slots, block after block."""
+def stream_sweep_reference(users, items_t, excl, block_i, p_acc=1,
+                           push=stream_push):
+    """Plain version: per block, the chains of ``block_tops`` over the
+    slices (one stream chain; multiacc's plain version passes its own),
+    then the TPU cascade of m1 and m2 into the slots, block after block."""
     rv, ri, gh = new_slots(users.shape[0], users.device)
     excluded = excl.bool()
     for j in range(items_t.shape[1] // block_i):
         z = block_scores(users, items_t, excluded, j, block_i)
-        rv, ri, gh = merge_slots(rv, ri, gh,
-                                 *block_candidates(z, j, block_i))
+        rv, ri, gh = merge_slots(
+            rv, ri, gh, *block_candidates(z, j, block_i, p_acc, push))
     return as_candidates(rv, ri, gh)
 
 
@@ -257,6 +317,38 @@ def time_ms(fn, iters: int, device, repeats: int = 3) -> float:
                 fn()
             ms = (time.perf_counter() - t0) * 1e3 / iters
         best = min(best, ms)
+    return best
+
+
+def graph_ms(fn, iters: int, device, repeats: int = 3) -> float:
+    """Best milliseconds per call of ``iters`` calls of ``fn`` captured in
+    one CUDA graph and replayed, timed with CUDA events: the device time
+    without the host's cost per launch (checks, allocations, the ctypes
+    call). What ``fn`` allocates comes from the graph's pool at capture,
+    not in the timed replay. On the CPU: ``time_ms``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return time_ms(fn, iters, device, repeats)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
     return best
 
 

@@ -68,7 +68,7 @@ def test_stream_plain_matches_jax(block_i):
     _assert_equal(terk.stream_sweep(u, it, ex, block_i), ref)
 
 
-@pytest.mark.parametrize("p_acc", [1, 2, 4])
+@pytest.mark.parametrize("p_acc", [1, 2, 4, 8])
 def test_multiacc_plain_matches_jax(p_acc):
     users, items_t, excl = _int_tables(2, n_items=1024)
     with pltpu.force_tpu_interpret_mode():
@@ -99,6 +99,103 @@ def test_skip_plain_matches_jax_where_skips_fire(floor_slot):
         # stream sweep does not give
         stream = terk.stream_sweep(u, it, ex, 256)
         assert not all(torch.equal(a, b) for a, b in zip(got[:3], stream))
+
+
+NAN_ITEMS = 1536  # a whole number of blocks of 128, 384 and 512 items
+
+
+def _nan_items(items_t, excl, live=(259, 650, 1029, 1283), dead=(700,)):
+    """NaN item columns. Item 259 is lane class 3 in slice 2 of the first
+    block of 384 or 512 items, so the finite candidates of slices 0 and 1
+    come ahead of it; 650 lies in slice 2 of the second 384-item block,
+    which starts at an odd item group (so a chain index taken from the
+    global group differs from the block-relative slice's at P = 2); 1283
+    is a second NaN of class 3. The ``dead`` items are excluded and score
+    NEG."""
+    items_t, excl = items_t.copy(), excl.copy()
+    items_t[:, list(live + dead)] = np.nan
+    excl[0, list(live)] = 0
+    excl[0, list(dead)] = 1
+    return items_t, excl
+
+
+def _nan_table(seed=10):
+    users, items_t, excl = _int_tables(seed, n_users=8, n_items=NAN_ITEMS)
+    return (users,) + _nan_items(items_t, excl)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dot_plain_matches_jax_on_nan_table(transposed):
+    """A NaN score makes its lane class's max NaN (``maximum``)."""
+    users, items_t, _ = _nan_table()
+    items = items_t if transposed else items_t.T.copy()
+    with pltpu.force_tpu_interpret_mode():
+        ref = jerk.dot_sweep(users, items, TILE_U, 512, transposed)
+    assert np.isnan(np.asarray(ref)).any()
+    _assert_equal([terk.dot_sweep(*_t(users, items), transposed)], [ref])
+
+
+# multiacc at every P on blocks of 4 slices, and at P > 1 on blocks of 3
+# (a slice count that is no multiple of P)
+NAN_CASES = ([("stream", 1, block_i) for block_i in (128, 512)]
+             + [("multiacc", p, 512) for p in tema.P_ACC]
+             + [("multiacc", p, 384) for p in tema.P_ACC if p > 1])
+
+
+@pytest.mark.parametrize("variant,p_acc,block_i", NAN_CASES)
+def test_plain_matches_jax_on_nan_table(variant, p_acc, block_i):
+    """Each variant keeps NaN as its own JAX tool does: stream's chain
+    (``where``) keeps a block's finite top-2 and turns m3 and the ghost
+    NaN; multiacc's (``maximum``/``minimum``) turns its chain NaN for the
+    rest of the block, and ``_merge_two`` lets a NaN in the higher chain
+    win; values, ids and ghosts equal, NaN at the same places."""
+    users, items_t, excl = _nan_table()
+    with pltpu.force_tpu_interpret_mode():
+        if variant == "stream":
+            ref = jerk.stream_sweep(users, items_t, excl, TILE_U, block_i)
+        else:
+            ref = jema.multiacc_sweep(users, items_t, excl, TILE_U, block_i,
+                                      p_acc)
+    u, it, ex = _t(users, items_t, excl[0])
+    got = (terk.stream_sweep(u, it, ex, block_i) if variant == "stream"
+           else tema.multiacc_sweep(u, it, ex, block_i, p_acc))
+    assert np.isnan(np.asarray(ref[2])).any()  # the NaN reached the ghosts
+    assert not np.isnan(np.asarray(ref[0])).any()  # and no slot
+    _assert_equal(got, ref)
+
+
+@pytest.mark.parametrize("floor_slot", [0, 7])
+def test_skip_plain_matches_jax_on_nan_table(floor_slot):
+    """The skip sweep takes the stream chain, and a block whose max is NaN
+    never skips; a NaN ghost stays NaN through the skipped blocks."""
+    users, items_t, excl = _firing_tables(11, block_i=512)
+    items_t, excl = _nan_items(items_t, excl)
+    with pltpu.force_tpu_interpret_mode():
+        cv, ci, gh, sk = jebs._skip_sweep(users, items_t, excl, TILE_U, 512,
+                                          floor_slot)
+    skips = np.asarray(sk)[::8, 0]
+    assert skips.sum() > 0 and np.isnan(np.asarray(gh)).any()
+    got = tebs.skip_sweep(*_t(users, items_t, excl[0]), TILE_U, 512,
+                          floor_slot)
+    _assert_equal(got, [cv, ci, gh, skips])
+
+
+def test_multiacc_is_stream_only_without_nan():
+    """On a finite table every P gives the stream sweep's result; on the
+    NaN table P = 1 and P = 2 do not (a NaN ends a multiacc chain's
+    block), as the JAX tools do not."""
+    users, items_t, excl = _int_tables(12, n_users=8, n_items=NAN_ITEMS)
+    for table in ((users, items_t, excl), _nan_table()):
+        u, it, ex = _t(table[0], table[1], table[2][0])
+        stream = terk.stream_sweep(u, it, ex, 512)
+        same = [all(np.array_equal(a.numpy(), b.numpy(), equal_nan=True)
+                    for a, b in zip(tema.multiacc_sweep(u, it, ex, 512, p),
+                                    stream))
+                for p in tema.P_ACC]
+        if table[0] is users:
+            assert all(same)
+        else:
+            assert not same[0] and not same[1]
 
 
 def test_make_inputs_matches_jax():

@@ -226,10 +226,18 @@ from coldrec_tpu_torch.tools import exp_multiacc as tema  # noqa: E402
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as terk  # noqa: E402
 
 
-def _variant_tables(device, n_users, n_items, d, seed, block_i=None):
+# NaN item rows: 259 is lane class 3 in slice 2 of the first block of 384
+# items or more, 650 in slice 2 of the second 384-item block (which starts
+# at an odd item group), 1283 a second NaN of class 3
+NAN_ROWS = (259, 650, 1029, 1283)
+
+
+def _variant_tables(device, n_users, n_items, d, seed, block_i=None,
+                    nan_items=0):
     """Integer tables on the card (every sum exact), 20% of items excluded.
     With ``block_i``: positive users and non-negative items scaled down
-    block by block, so that block skips fire."""
+    block by block, so that block skips fire. With ``nan_items``: the
+    ``NAN_ROWS`` (not excluded) and that many random item rows are NaN."""
     rng = np.random.default_rng(seed)
     lo = 1 if block_i else -8
     users = rng.integers(lo, 9, (n_users, d)).astype(np.float32)
@@ -239,6 +247,10 @@ def _variant_tables(device, n_users, n_items, d, seed, block_i=None):
         items *= np.repeat(np.arange(n_items // block_i, 0, -1),
                            block_i).astype(np.float32)[:, None]
     excl = (rng.random(n_items) < 0.2).astype(np.int8)
+    if nan_items:
+        items[rng.choice(n_items, nan_items, replace=False)] = np.nan
+        items[list(NAN_ROWS)] = np.nan
+        excl[list(NAN_ROWS)] = 0
     users, items, excl = (torch.as_tensor(a, device=device)
                           for a in (users, items, excl))
     return users, items, items.T.contiguous(), excl
@@ -255,7 +267,7 @@ def _launched(wrapper, fn):
 def _assert_same(got, ref):
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
-        assert g.device == r.device and torch.equal(g, r)
+        assert g.device == r.device and _same(g, r)
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -299,8 +311,8 @@ def test_multiacc_kernel_matches_plain(cuda, p_acc, block_i, d):
     users, _, items_t, excl = _variant_tables(cuda, 37, 3072, d, 7)
     got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
         users, items_t, excl, block_i, p_acc))
-    _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
-                                                  block_i))
+    _assert_same(got, tema.multiacc_sweep_reference(users, items_t, excl,
+                                                    block_i, p_acc))
 
 
 # blocks that close inside a step of the tile's walk (256, 384) and span
@@ -311,8 +323,45 @@ def test_multiacc_kernel_block_grid(cuda, p_acc, block_i):
     users, _, items_t, excl = _variant_tables(cuda, 37, 24576, 16, 17)
     got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
         users, items_t, excl, block_i, p_acc))
-    _assert_same(got, terk.stream_sweep_reference(users, items_t, excl,
-                                                  block_i))
+    _assert_same(got, tema.multiacc_sweep_reference(users, items_t, excl,
+                                                    block_i, p_acc))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dot_kernel_matches_plain_on_nan_table(cuda, transposed):
+    """A NaN score makes its class's max NaN, as in the plain version."""
+    users, items, items_t, _ = _variant_tables(cuda, 37, 3072, 16, 18,
+                                               nan_items=20)
+    tab = items_t if transposed else items
+    got = _launched(terk.dot_sweep,
+                    lambda: terk.dot_sweep(users, tab, transposed))
+    ref = terk.dot_sweep_reference(users, tab, transposed)
+    assert bool(ref.isnan().any())
+    _assert_same([got], [ref])
+
+
+# p_acc 0: the stream sweep; blocks of 1, 2, 3 and 4 slices (no multiple
+# of P at 384, fewer slices than chains at 128 and 256); d = 1200 stages
+# the users step by step
+@pytest.mark.parametrize("p_acc", (0,) + tema.P_ACC)
+@pytest.mark.parametrize("block_i", [128, 256, 384, 512])
+@pytest.mark.parametrize("d", [16, 1200])
+def test_chain_kernels_match_plain_on_nan_table(cuda, p_acc, block_i, d):
+    """stream and multiacc each keep NaN as their own plain version (and
+    JAX tool) does: the chain, and at P > 1 which slices share a chain."""
+    users, _, items_t, excl = _variant_tables(cuda, 37, 3072, d, 19,
+                                              nan_items=20)
+    if p_acc == 0:
+        got = _launched(terk.stream_sweep, lambda: terk.stream_sweep(
+            users, items_t, excl, block_i))
+        ref = terk.stream_sweep_reference(users, items_t, excl, block_i)
+    else:
+        got = _launched(tema.multiacc_sweep, lambda: tema.multiacc_sweep(
+            users, items_t, excl, block_i, p_acc))
+        ref = tema.multiacc_sweep_reference(users, items_t, excl, block_i,
+                                            p_acc)
+    assert bool(ref[2].isnan().any())
+    _assert_same(got, ref)
 
 
 def _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, block_i):
@@ -353,6 +402,18 @@ def test_skip_kernel_layout_grid(cuda, tile_u, floor_slot, table):
         cuda, 1040, 8192, 8, 9, block_i=512 if falling else None)
     skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 512)
     if falling and floor_slot == 0:
+        assert int(skips.max()) > 0
+
+
+@pytest.mark.parametrize("tile_u", [8, 64, 256])
+@pytest.mark.parametrize("floor_slot", [0, 7])
+def test_skip_kernel_matches_plain_on_nan_table(cuda, tile_u, floor_slot):
+    """A block whose max is NaN never skips, and a NaN ghost stays NaN
+    through the blocks a tile skips."""
+    users, _, items_t, excl = _variant_tables(cuda, 300, 4096, 8, 20,
+                                              block_i=256, nan_items=20)
+    skips = _skip_check(cuda, users, items_t, excl, tile_u, floor_slot, 256)
+    if floor_slot == 0:
         assert int(skips.max()) > 0
 
 

@@ -84,7 +84,7 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
         "assert n == {'fused_sweep': 0, 'merge_parts': 0}, n\n"
         "t = cs.time_merge('cpu', 16, 2000, d=8, reps=1)\n"
         "assert t['bound_by'] == 'bytes' and t['parts'] == 4, t\n"
-        "v = cs.variants_run('cpu', 32, 4096, d=8, blocks=(128, 256),\n"
+        "v = cs.variants_run('cpu', 32, 6144, d=8, blocks=(128, 256),\n"
         "                    tiles=(8, 16), check_users=16,\n"
         "                    check_items=2048)\n"
         "assert set(v) == set(cs.VARIANTS), v\n"
@@ -102,6 +102,8 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
     assert "host split (all setting" in proc.stdout
     assert "merge_parts bit-equal at 4 parts" in proc.stdout
     assert "falling table tile_u=16 floor=rv[0]" in proc.stdout
+    assert "NaN table P=8 block_i=384" in proc.stdout
+    assert "NaN table tile_u=16 floor=rv[0]" in proc.stdout
     blocked = _run_blocked("import jax\n", tmp_path)
     assert blocked.returncode != 0  # the block really holds
 
