@@ -5,7 +5,8 @@
 
 Phases, each printed with its seconds:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
-  2. build    nvcc builds the kernels from ``coldrec_tpu_torch/csrc``;
+  2. build    nvcc builds the kernels from ``coldrec_tpu_torch/csrc``, and
+              the host compiler the negative sampler beside them;
   3. kernel   the retrieval kernel against its plain PyTorch version at
               d=64 on 2048 users x 270,170 items (kernel-bx) and 2048 x
               3,706 items (kernel-ml): the candidate values and ghosts agree
@@ -28,7 +29,22 @@ Phases, each printed with its seconds:
               merge) must have launched (launch counts are zeroed just before
               the main path); then the steps of ``retrieval_topk`` after the
               kernel timed on their own for the overall test setting;
-  6. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
+  6. train    MF trained through the port's CLI entry
+              (``coldrec_tpu_torch.main.run``) at book-crossing shape from a
+              split directory, d=64, bs 4096, lr 1e-3, reg 1e-4, 3 epochs,
+              validated every epoch through the kernel (launch counts zeroed
+              just before the run and read just after: ``fused_sweep`` must
+              have launched for every validation and the test); the loss
+              must fall (last 50 batches below the first 50), validation
+              NDCG@20 of the trained (bus) tables must beat the untrained
+              tables', the three-way-test lists of the trained tables must
+              equal the plain path's by the rule of phase 3, the result and
+              bus files must be written; each epoch's time split (host
+              batches, upload, step enqueue, device step from CUDA events,
+              validation) is printed; then 20 MF steps on the card are held
+              against the same 20 on the CPU from the same tables and
+              batches;
+  7. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
               first their path, driven through the tools' entry points with
               every launch count zeroed just before and read just after
               (``exp_retrieval_kernels.main`` at the tools' width of 2048
@@ -43,7 +59,7 @@ Phases, each printed with its seconds:
               same places): dot in both layouts, stream at both block_i,
               multiacc at every P at block_i 8192 and at 384 (3 slices, no
               multiple of P > 1), skip at both tile_u;
-  7. timing   CUDA-event times of one sweep of every kernel (2048 users, and
+  8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep and the merge): the
               kernel, its plain version and one library yardstick, beside
               the least time the card could take. The merge is timed alone
@@ -64,7 +80,11 @@ its plain version.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -73,8 +93,16 @@ import time
 import numpy as np
 import torch
 
-from coldrec_tpu_torch.data.synthetic import synthetic_dataset
-from coldrec_tpu_torch.models.mf import MF
+from coldrec_tpu_torch import main as tmain
+from coldrec_tpu_torch import native
+from coldrec_tpu_torch.config import default_args, make_args
+from coldrec_tpu_torch.data.builder import ColdStartDataset
+from coldrec_tpu_torch.data.sampler import pairwise_batches
+from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
+from coldrec_tpu_torch.data.synthetic import (
+    synthetic_dataset, synthetic_interactions,
+)
+from coldrec_tpu_torch.models.mf import MF, MFTrainer
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda import retrieval as ret
 from coldrec_tpu_torch.ops.cuda.retrieval import (
@@ -82,14 +110,20 @@ from coldrec_tpu_torch.ops.cuda.retrieval import (
     fused_sweep_reference, merge_parts, merge_parts_reference, pad_items,
     retrieval_topk, sweep_parts_reference,
 )
-from coldrec_tpu_torch.runtime.checkpoints import save_embeddings
+from coldrec_tpu_torch.runtime.checkpoints import (
+    load_embeddings, save_embeddings,
+)
 from coldrec_tpu_torch.runtime.eval import EvalSweep, exact_scores, masked_topk
 from coldrec_tpu_torch.runtime.serving import RetrievalServer
-from coldrec_tpu_torch.runtime.trainer import SETTING_SPLITS, three_way_test
+from coldrec_tpu_torch.runtime.trainer import (
+    SETTING_SPLITS, Config, rec_lists, three_way_test,
+)
 from coldrec_tpu_torch.tools import exp_blockskip as ebs
 from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
 from coldrec_tpu_torch.tools import tile_shapes
+from coldrec_tpu_torch.utils.logging import event_log
+from coldrec_tpu_torch.utils.metrics import ranking_evaluation
 
 BUDGET_S = 600.0  # the whole run, half of the 1200 s it may take at most
 D = 64  # MF emb_size (BASELINE default)
@@ -119,6 +153,17 @@ NAN_ROWS = (259, 650, 1029, 1283)
 ODD_BLOCK = 384  # 3 slices a block: no multiple of P > 1
 SERVE_USERS = 512  # users per serving request
 CLOCKS = "clocks.sm,power.draw"  # logged around the variants' times
+# Phase train holds STEP_CHECK MF steps (lr 1e-3) on the card against the
+# same steps on the CPU: the losses within STEP_LOSS_RTOL (fp32 sums in
+# another order), and the tables within STEP_ATOL except at most STEP_FLIPS
+# of the elements: Adam's first steps move an element by ~lr * sign(g), so
+# an element whose gradient cancels to ~0 may flip sign between the two
+# summation orders and move by up to 2 * lr a step (STEP_MAX_ERR in all).
+STEP_CHECK = 20
+STEP_LOSS_RTOL = 1e-5
+STEP_ATOL = 1e-5
+STEP_FLIPS = 1e-5
+STEP_MAX_ERR = 2 * 1e-3 * STEP_CHECK
 WRAPPERS = {
     "fused_sweep": fused_sweep,
     "merge_parts": merge_parts,
@@ -493,6 +538,167 @@ def slice_run(device, n_users, n_items, n_inter, d=D, topN=(10, 20),
     return launches
 
 
+def read_events(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def val_ndcg(data, ue, ie, device, k=K):
+    """Validation NDCG@k (overall setting) of one pair of tables through the
+    kernel path, as ``fast_evaluation`` computes it."""
+    sweep = EvalSweep(data, "item", USER_CHUNK, k, device=device)
+    rec = rec_lists(sweep, "valid", "all", ue, ie, backend="kernel")
+    es = data.eval_splits[SETTING_SPLITS[("all", "valid")]]
+    _, perf = ranking_evaluation(es.indptr, es.items, rec, [k], data.item_num)
+    return float(perf[0][3])
+
+
+def step_parity(device, data, d, bs, steps=STEP_CHECK, seed=0):
+    """``steps`` MF steps on ``device`` and on the CPU from the same tables
+    and the same host batches. Returns (max loss rel err, max table abs err,
+    elements beyond STEP_ATOL, elements)."""
+    tables = MF(data.user_num, data.item_num, d, seed=seed, device="cpu")
+    init = {k: v.detach().numpy() for k, v in
+            zip(("user_emb", "item_emb"), tables.forward_tables())}
+    trainers = [MFTrainer(Config(default_args(
+        model="MF", emb_size=d, bs=bs, seed=seed, save_emb=False,
+        device=str(dev)), data), init_params=init)
+        for dev in (device, torch.device("cpu"))]
+    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
+    losses = []
+    for _, batch in zip(range(steps), batches):
+        losses.append([float(t.train_step(t.upload(batch)))
+                       for t in trainers])
+    losses = np.asarray(losses)
+    loss_err = float(np.max(np.abs(losses[:, 0] - losses[:, 1])
+                            / np.abs(losses[:, 1])))
+    worst, over, numel = 0.0, 0, 0
+    for a, b in zip(trainers[0].model.forward_tables(),
+                    trainers[1].model.forward_tables()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(diff.max()))
+        over += int((diff > STEP_ATOL).sum())
+        numel += diff.numel()
+    return loss_err, worst, over, numel
+
+
+def train_run(device, n_users, n_items, n_inter, d=D, epochs=3, bs=4096,
+              topN=(10, 20), seed=0, steps=STEP_CHECK):
+    """Phase train: MF trained through the port's CLI entry
+    (``coldrec_tpu_torch.main.run``) on a split directory at the given
+    shape, validated every epoch through the retrieval kernel, then checked.
+    Returns the launches of each kernel counted during the run."""
+    device = torch.device(device)
+    top = max(topN)
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        pairs = synthetic_interactions(n_users, n_items, n_inter, seed=seed)
+        res = cold_start_split(pairs, cold_object="item", seed=seed + 42)
+        write_split_dir(res, root, "bx_synth", "item")
+        np.save(os.path.join(root, "bx_synth", "bx_synth_item_content.npy"),
+                np.zeros((res.item_num, 1), np.float32))
+        events = os.path.join(root, "events.jsonl")
+        os.environ["COLDREC_EVENT_LOG"] = events
+        if event_log().path != events:
+            raise RuntimeError("the event log was opened before this phase")
+        log(f"  split dir written ({time.perf_counter() - t:.2f} s)")
+        args = make_args([
+            "--model", "MF", "--dataset", "bx_synth", "--cold_object", "item",
+            "--data_dir", root, "--emb_dir", os.path.join(root, "emb"),
+            "--result_file", os.path.join(root, "result.txt"),
+            "--epochs", str(epochs), "--bs", str(bs), "--emb_size", str(d),
+            "--lr", "0.001", "--reg", "0.0001", "--topN",
+            ",".join(map(str, topN)), "--early_stop", "10", "--eval_every",
+            "1", "--seed", str(seed), "--device", device.type])
+        reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            payload = tmain.run(args)
+        _sync(device)
+        t_run = time.perf_counter() - t
+        launches = {name: launch_counts()[name]
+                    for name in ("fused_sweep", "merge_parts")}
+        text = out.getvalue()
+        log("\n".join("  | " + ln for ln in text.splitlines()
+                      if ln.startswith(("training:", "Epoch:", "Time:",
+                                        "Results written"))))
+        with open(args.result_file) as f:
+            result = f.read()
+        if "--- JSON (machine-readable) ---" not in result:
+            raise AssertionError("the result file has no JSON block")
+        bus = load_embeddings(args.emb_dir, "bx_synth", "item", "MF")
+        event_log().close()
+        evs = read_events(events)
+        data = ColdStartDataset.from_split_dir(root, "bx_synth", "item")
+
+    epoch_evs = [e for e in evs if e["event"] == "epoch"]
+    val_evs = [e for e in evs if e["event"] == "validation"]
+    end = [e for e in evs if e["event"] == "run_end"][0]
+    if len(epoch_evs) != epochs or len(val_evs) != epochs:
+        raise AssertionError(f"{len(epoch_evs)} epochs, {len(val_evs)} "
+                             f"validations logged, {epochs} asked for")
+    losses = [x for e in epoch_evs for x in e["losses"]]
+    w = min(50, len(losses) // 2)
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"the loss did not fall: first {w} batches "
+                             f"{first}, last {w} {last}")
+    for e in epoch_evs:
+        log(f"  epoch {e['epoch']}: {e['batches']} steps in "
+            f"{e['train_s']:.3f} s ({e['batches'] / e['train_s']:.1f} "
+            f"steps/s): host batches {e['host_s']:.3f} s, upload "
+            f"{e['upload_s']:.3f} s, step enqueue {e['step_host_s']:.3f} s, "
+            f"device step {e['step_device_s']:.3f} s; validation "
+            f"{e['validation_s']:.3f} s")
+
+    mf = MF(data.user_num, data.item_num, d, seed=seed, device=device)
+    untrained = val_ndcg(data, *(x.detach() for x in mf.forward_tables()),
+                         device, top)
+    ue = torch.as_tensor(bus["user_emb"], device=device)
+    ie = torch.as_tensor(bus["item_emb"], device=device)
+    trained = val_ndcg(data, ue, ie, device, top)
+    best = max(e["ndcg"] for e in val_evs)
+    if not trained > untrained or abs(trained - best) > 1e-6:
+        raise AssertionError(
+            f"validation NDCG@{top}: trained {trained} (best logged {best}), "
+            f"untrained {untrained}")
+
+    reset_launches()
+    kernel = three_way_test(data, ue, ie, topN=topN, backend="kernel",
+                            device=device, verbose=False)
+    test_launches = launch_counts()["fused_sweep"]
+    plain = three_way_test(data, ue, ie, topN=topN, backend="plain",
+                           device=device, verbose=False)
+    for setting, got in kernel.items():
+        es = data.eval_splits[SETTING_SPLITS[(setting, "test")]]
+        rows, equal = compare_lists(ue, ie, es.users, got["rec"],
+                                    plain[setting]["rec"])
+        log(f"  trained {setting}: {rows} users, lists id-equal to the "
+            f"plain path on {equal} (others near-ties); metrics "
+            f"{got['performance']}")
+    val_launches = (launches["fused_sweep"] - test_launches) / epochs
+    log(f"  run {t_run:.2f} s; kernel launches {launches} "
+        f"(fused_sweep: {val_launches:g} per validation, {test_launches} in "
+        f"the three-way test); three-way test of the trained tables "
+        f"{end['test_seconds']:.3f} s; seconds per epoch "
+        f"{payload['efficiency']['seconds_per_completed_epoch_mean']:.3f}; "
+        f"validation NDCG@{top} {untrained:.5f} untrained -> "
+        f"{trained:.5f}; loss {first:.5f} -> {last:.5f}")
+    if device.type == "cuda" and not val_launches >= 1:
+        raise AssertionError(f"validation left the kernel unlaunched: "
+                             f"{launches}, test {test_launches}")
+
+    t = time.perf_counter()
+    loss_err, worst, over, numel = step_parity(device, data, d, bs, steps)
+    log(f"  {steps} steps {device.type} vs cpu ({time.perf_counter() - t:.2f}"
+        f" s): loss max rel err {loss_err:.3e}, tables max abs err "
+        f"{worst:.3e}, {over} of {numel} elements beyond {STEP_ATOL}")
+    if not (loss_err <= STEP_LOSS_RTOL and worst <= STEP_MAX_ERR
+            and over <= STEP_FLIPS * numel):
+        raise AssertionError("the card's steps disagree with the CPU's")
+    return launches
+
+
 def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
                r=RATED_WIDTH, seed=0, reps=20):
     """Phase 6: CUDA-event milliseconds of one sweep, plus the bound."""
@@ -844,6 +1050,18 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
     return rows
 
 
+def build_all():
+    """The CUDA library and, on a thread beside it, the host sampler;
+    returns (BuildResult, (sampler path, its seconds))."""
+    def sampler():
+        t = time.perf_counter()
+        return native.build(), time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(sampler)
+        return kbuild.build(), host.result()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -855,8 +1073,9 @@ def main() -> int:
     log(f"  {smi} | torch: {kind}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    built = run_phase("build", kbuild.build)
+    built, sampler = run_phase("build", build_all)
     log(f"  {built.path.name}: nvcc {built.seconds:.2f} s\n{built.ptxas}")
+    log(f"  {sampler[0].name}: {sampler[1]:.2f} s")
 
     errs = [
         run_phase("kernel-bx", kernel_vs_plain, device, 2048, BX[1]),
@@ -864,6 +1083,7 @@ def main() -> int:
     ]
     exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
+    run_phase("train", train_run, device, *BX)
     variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)

@@ -5,12 +5,20 @@ module names so each counterpart is easy to find, and imports neither JAX nor
 anything of ``coldrec_tpu``: where it needs a numpy-only module of the JAX
 package it keeps its own copy.
 
-Layers of this slice (serving and the three-way test of MF tables):
-  - ``data``     host-side split protocol, id remap, eval-split ground truth.
-  - ``models``   ``MF`` as an ``nn.Module`` holding the two embedding tables.
-  - ``ops.cuda`` the hand-written Hopper retrieval kernel (``csrc/``), its
-                 nvcc + ctypes build and its plain PyTorch version.
-  - ``runtime``  eval sweep, three-way test, npz checkpoint bus, serving.
+Layers (the main path, ``python -m coldrec_tpu_torch.main --model MF``):
+  - ``main``     the CLI: runs, seeds, aggregation, the result file.
+  - ``config``   the JAX CLI's flags and defaults, plus ``--device``.
+  - ``models``   ``MF`` (tables, BPR + L2 loss) and ``MFTrainer`` on the
+                 shared warm-backbone loop (Adam, per-epoch validation,
+                 early stop, train-state resume, the embedding bus).
+  - ``data``     host-side split protocol, id remap, eval-split ground truth,
+                 BPR batches from the native negative sampler (``native``,
+                 ``csrc/host_sampler.cpp``).
+  - ``ops``      the losses; ``ops.cuda``: the hand-written Hopper retrieval
+                 kernel (``csrc/``), its nvcc + ctypes build and its plain
+                 PyTorch version.
+  - ``runtime``  trainer contract, eval sweep, three-way test, checkpoints
+                 (npz bus, train state), serving.
 
 Every public entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; with no card the default raises instead of falling back.

@@ -2,8 +2,7 @@
 
 The port's copy of ``coldrec_tpu/data/builder.py`` without its graph half
 (``SparseGraphHost``, ``interaction_csr``, ``bipartite_adjacency``,
-``normalize_graph``, ``norm_adj``), which comes with the LightGCN slice, and
-without ``is_rated``, which comes with the samplers.
+``normalize_graph``, ``norm_adj``), which comes with the LightGCN slice.
 
 A vectorized, static-shape rebuild of the reference's ``ColdStartDataBuilder``
 (ColdRec util/databuilder.py:6-385). Protocol-critical semantics preserved:
@@ -260,6 +259,25 @@ class ColdStartDataset:
         return self.train_items_sorted[
             self.train_indptr[uid] : self.train_indptr[uid + 1]
         ]
+
+    def is_rated(self, uids: np.ndarray, iids: np.ndarray) -> np.ndarray:
+        """Vectorized membership test: did user u rate item i in training?"""
+        uids = np.asarray(uids, dtype=np.int64)
+        iids = np.asarray(iids, dtype=np.int64)
+        # global searchsorted: offset items into disjoint per-user key spaces;
+        # O(n log E) using one sorted key array built once.
+        if not hasattr(self, "_train_keys"):
+            rows = np.repeat(
+                np.arange(self.user_num), np.diff(self.train_indptr)
+            ).astype(np.int64)
+            self._train_keys = rows * (self.item_num + 1) + self.train_items_sorted
+        if self._train_keys.size == 0:
+            return np.zeros(uids.shape, dtype=bool)
+        keys = uids * (self.item_num + 1) + iids
+        pos = np.minimum(
+            np.searchsorted(self._train_keys, keys), self._train_keys.shape[0] - 1
+        )
+        return self._train_keys[pos] == keys
 
     # ------------------------------------------------------------------ eval
     def rated_padded(self, eval_users: np.ndarray) -> np.ndarray:

@@ -1,19 +1,23 @@
-"""BPR-MF warm backbone tables (the port's counterpart of
+"""BPR-MF warm backbone (the port's counterpart of
 ``coldrec_tpu/models/mf.py``; reference: ColdRec model/MF.py).
 
-This slice carries the two embedding tables and their score function; the
-BPR + L2 training loop comes with the next slice.
+``MF`` holds the two xavier-initialized embedding tables, their score
+function and the BPR + L2 loss of a batch; ``MFTrainer`` trains it with
+Adam in the shared warm-backbone loop and writes the best tables to the
+embedding bus (MF.py:44-46).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.losses import bpr_loss, l2_reg_loss
 from .common import xavier_uniform
+from .warm_base import WarmBackboneTrainer
 
 
 class MF(nn.Module):
@@ -48,10 +52,43 @@ class MF(nn.Module):
         ie = np.asarray(params["item_emb"], np.float32)
         m = cls(ue.shape[0], ie.shape[0], ue.shape[1], device=device)
         with torch.no_grad():
-            m.user_emb.copy_(torch.from_numpy(ue))
-            m.item_emb.copy_(torch.from_numpy(ie))
+            m.user_emb.copy_(torch.tensor(ue))
+            m.item_emb.copy_(torch.tensor(ie))
         return m
 
     def forward_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval-ready (user_emb, item_emb) tables."""
         return self.user_emb, self.item_emb
+
+    def loss(self, batch: Dict[str, torch.Tensor], reg: float) -> torch.Tensor:
+        """BPR + L2 of a padded batch {user, pos_item, neg_item, weight}."""
+        u = self.user_emb[batch["user"]]
+        pos = self.item_emb[batch["pos_item"]]
+        neg = self.item_emb[batch["neg_item"]]
+        w = batch["weight"]
+        return bpr_loss(u, pos, neg, w) + l2_reg_loss(reg, u, pos, neg,
+                                                      weight=w)
+
+
+class MFTrainer(WarmBackboneTrainer):
+    """MF trained with BPR + L2 and Adam. ``init_params`` (numpy tables
+    keyed ``user_emb`` / ``item_emb``, e.g. the JAX package's ``MF.params``)
+    replaces the seeded initial tables."""
+
+    def __init__(self, config, init_params: Optional[Dict] = None):
+        super().__init__(config)
+        if init_params is None:
+            self.model = MF(self.data.user_num, self.data.item_num,
+                            self.emb_size, seed=self.seed, device=self.device)
+        else:
+            shapes = {k: np.shape(init_params[k])
+                      for k in ("user_emb", "item_emb")}
+            want = {"user_emb": (self.data.user_num, self.emb_size),
+                    "item_emb": (self.data.item_num, self.emb_size)}
+            if shapes != want:
+                raise ValueError(f"init_params shapes {shapes} != {want}")
+            self.model = MF.from_jax_params(init_params, device=self.device)
+        self.setup_optimizer()
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.model.loss(batch, self.reg)

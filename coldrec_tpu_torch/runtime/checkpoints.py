@@ -10,7 +10,9 @@ The reference's layout (one ``torch.save`` file per tensor, named
 ``<ds>_cold_<obj>_<model>_<key>.pt``, e.g. ColdRec MF.py:44-46) is written
 with ``fmt="pt"``/``"both"`` and read when the npz is absent.
 
-The mid-training train-state checkpoint comes with the training slice.
+The mid-training train-state checkpoint (:func:`save_train_state`,
+:func:`load_train_state`) is the port's own ``torch.save`` file; it does not
+read the JAX package's pickle.
 """
 from __future__ import annotations
 
@@ -21,6 +23,36 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def save_train_state(path: str, state: Dict) -> str:
+    """Write a mid-training checkpoint: tensors (state dicts included) go to
+    the CPU, the rest stays Python values. Written to a temporary file and
+    renamed into place, so a preemption mid-write never leaves a torn
+    file."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(_to_cpu(state), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(path: str) -> Optional[Dict]:
+    """The checkpoint at ``path`` (tensors on the CPU), or None if absent."""
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _path(emb_dir: str, dataset: str, cold_object: str, model: str) -> str:

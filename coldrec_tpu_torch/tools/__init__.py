@@ -8,4 +8,6 @@ their plain PyTorch versions and the tool's command line
 
 ``tile_shapes`` is the port's own tool: it builds the retrieval sweep and
 the dot ceiling at other tile shapes and times them
-(``python -m coldrec_tpu_torch.tools.tile_shapes``)."""
+(``python -m coldrec_tpu_torch.tools.tile_shapes``); ``profile_train``
+splits one MF training step's time on the card
+(``python -m coldrec_tpu_torch.tools.profile_train``)."""

@@ -435,3 +435,98 @@ def test_variant_wrappers_refuse_bad_card_input(cuda):
         tebs.skip_sweep(users, items_t, excl, 8, 256, 9)
     with pytest.raises(TypeError):
         terk.dot_sweep(users.half(), items_t, True)
+
+
+# ---------------------------------------------------------------- training
+# Card vs CPU MF steps: the same loss in another summation order (and, on
+# the card, the index backward's accumulation order). Adam's first steps are
+# ~lr * sign(g), so an element whose gradient cancels to ~0 may flip sign
+# and move by up to 2 * lr a step; at most STEP_FLIPS of the elements may
+# lie beyond STEP_ATOL.
+STEP_ATOL = 1e-5
+STEP_FLIPS = 1e-4
+
+
+def _mf_trainer(data, device, init, epochs=1, **kw):
+    from coldrec_tpu_torch.config import default_args
+    from coldrec_tpu_torch.models.mf import MFTrainer
+    from coldrec_tpu_torch.runtime.trainer import Config
+
+    args = default_args(model="MF", epochs=epochs, bs=256, emb_size=16,
+                        save_emb=False, seed=1, device=str(device), **kw)
+    return MFTrainer(Config(args, data), init_params=init)
+
+
+def _small_data():
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+
+    return synthetic_dataset(n_users=300, n_items=2000, n_inter=9000,
+                             seed=6)[0]
+
+
+def _init_tables(data, d=16, seed=2):
+    rng = np.random.default_rng(seed)
+    return {"user_emb": rng.standard_normal((data.user_num, d)).astype(
+        np.float32) * 0.1,
+        "item_emb": rng.standard_normal((data.item_num, d)).astype(
+            np.float32) * 0.1}
+
+
+def test_mf_steps_on_card_match_cpu(cuda):
+    from coldrec_tpu_torch.data.sampler import pairwise_batches
+
+    data = _small_data()
+    init = _init_tables(data)
+    card, cpu = (_mf_trainer(data, dev, init) for dev in (cuda, "cpu"))
+    for _, batch in zip(range(20), pairwise_batches(
+            data, 256, np.random.default_rng(0))):
+        lg = card.train_step(card.upload(batch))
+        lc = cpu.train_step(cpu.upload(batch))
+        assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(card.model.forward_tables(), cpu.model.forward_tables()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        assert float(diff.max()) <= 2 * 1e-3 * 20
+        assert int((diff > STEP_ATOL).sum()) <= STEP_FLIPS * diff.numel()
+
+
+def test_fast_evaluation_lists_of_trained_tables_match_plain(cuda):
+    """Validation lists of trained tables through the kernel equal the plain
+    path's, except at near-ties (scores within 1e-5 of the row's top)."""
+    from coldrec_tpu_torch.runtime.trainer import rec_lists
+
+    data = _small_data()
+    tm = _mf_trainer(data, cuda, _init_tables(data), epochs=2)
+    before = tret.fused_sweep.launches
+    tm.train()
+    assert tret.fused_sweep.launches > before
+    assert [s["epoch"] for s in tm.epoch_stats] == [1, 2]
+    assert all(s["step_device_s"] > 0 for s in tm.epoch_stats)
+    ue, ie = tm.user_emb, tm.item_emb
+    for setting in ("all", "cold", "warm"):
+        got = tm.valid(setting)
+        ref = rec_lists(tm.sweep, "valid", setting, ue, ie, backend="plain")
+        users = data.eval_splits[
+            {"all": "overall_val", "cold": "cold_val",
+             "warm": "warm_val"}[setting]].users
+        for r in np.flatnonzero((got != ref).any(axis=1)):
+            u = ue[int(users[r])]
+            sa = ie[torch.as_tensor(got[r], device=cuda).long()] @ u
+            sb = ie[torch.as_tensor(ref[r], device=cuda).long()] @ u
+            scale = float(torch.maximum(sa.abs().max(), sb.abs().max()))
+            assert float((sa - sb).abs().max()) <= 1e-5 * scale
+
+
+def test_host_sampler_builds_on_the_card_machine(cuda):
+    from coldrec_tpu_torch import native
+
+    path = native.build()
+    assert path.exists() and path.parent == native.BUILD_DIR
+    data = _small_data()
+    users = data.train_pairs[:1000, 0]
+    negs = native.sample_negatives_native(
+        data.train_indptr, data.train_items_sorted, users, data.n_seen_items,
+        7)
+    assert negs.shape == (1000,) and not data.is_rated(users, negs).any()
+    np.testing.assert_array_equal(negs, native.sample_negatives_native(
+        data.train_indptr, data.train_items_sorted, users, data.n_seen_items,
+        7))

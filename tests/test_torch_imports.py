@@ -192,3 +192,83 @@ def test_cuda_tensor_never_falls_back_to_plain():
     excl = torch.zeros(128, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no retrieval kernel"):
         tret.fused_sweep(users, items_t, excl)
+
+
+def test_training_modules_are_guarded():
+    """The training slice's modules are among the files the import guard
+    reads."""
+    files = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for name in ("main.py", "native.py", "ops/losses.py", "data/sampler.py",
+                 "models/warm_base.py", "runtime/trainer.py",
+                 "config/base.py", "utils/seeding.py", "utils/logging.py",
+                 "tools/profile_train.py"):
+        assert f"coldrec_tpu_torch/{name}" in files, name
+
+
+def test_chip_smoke_train_phase_rehearses_on_cpu_without_jax(tmp_path):
+    """Phase train at a tiny size on the CPU, with jax and coldrec_tpu
+    blocked: the CLI entry trains, validates every epoch, writes the
+    result and bus files, and the checks of the phase pass."""
+    code = (
+        "import chip_smoke as cs\n"
+        "for m in ('jax', 'coldrec_tpu'):\n"
+        "    assert sys.modules[m] is None\n"
+        "n = cs.train_run('cpu', 300, 2000, 8000, d=16, bs=256)\n"
+        "assert n == {'fused_sweep': 0, 'merge_parts': 0}, n\n"
+        "print('TRAIN OK')\n"
+    )
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TRAIN OK" in proc.stdout
+    for line in ("epoch 3: ", "device step", "validation NDCG@20",
+                 "trained all:", "20 steps cpu vs cpu"):
+        assert line in proc.stdout, line
+
+
+def _tiny_split_dir(root):
+    from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
+    from coldrec_tpu_torch.data.synthetic import synthetic_interactions
+
+    res = cold_start_split(synthetic_interactions(60, 80, 1200, seed=3),
+                           cold_object="item", seed=4)
+    write_split_dir(res, str(root), "tiny", "item")
+    np.save(root / "tiny" / "tiny_item_content.npy",
+            np.zeros((res.item_num, 2), np.float32))
+    return ["--model", "MF", "--dataset", "tiny", "--data_dir", str(root),
+            "--emb_dir", str(root / "emb"), "--epochs", "2", "--bs", "128",
+            "--emb_size", "8", "--result_file", str(root / "result.txt")]
+
+
+def test_cli_runs_as_a_module_without_jax(tmp_path):
+    flags = _tiny_split_dir(tmp_path) + ["--device", "cpu"]
+    code = (
+        "import runpy\n"
+        f"sys.argv = ['coldrec_tpu_torch.main'] + {flags!r}\n"
+        "runpy.run_module('coldrec_tpu_torch.main', run_name='__main__')\n"
+    )
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    text = (tmp_path / "result.txt").read_text()
+    assert "--- JSON (machine-readable) ---" in text
+    assert (tmp_path / "emb" / "tiny_cold_item_MF_emb.npz").exists()
+
+
+def test_cli_and_trainer_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run on it")
+    from coldrec_tpu_torch import main as tmain
+    from coldrec_tpu_torch.config import default_args, make_args
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+    from coldrec_tpu_torch.models.mf import MFTrainer
+    from coldrec_tpu_torch.runtime.trainer import Config
+    from coldrec_tpu_torch.tools import profile_train
+
+    args = make_args(_tiny_split_dir(tmp_path))
+    assert args.device == "cuda" and default_args().device == "cuda"
+    data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
+    for call in (lambda: tmain.run(args),
+                 lambda: MFTrainer(Config(default_args(), data)),
+                 lambda: profile_train.main(["--users", "30"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "result.txt").exists()
