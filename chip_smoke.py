@@ -16,11 +16,14 @@ Phases, each printed with its seconds:
               more than ``GAP_REL``; kernel-ml adds an integer table with
               NaN item rows (bit-equal, NaN at the same places; no NaN in a
               slot, and the ghost NaN exactly in the lane classes of NaN
-              items that are not excluded);
+              items that are not excluded); kernel-ml repeats both checks
+              for the sweep's bf16 instance (plain version: the fp32 sweep
+              of the bf16-rounded tables);
   4. kernel-int  integer tables at 2048 and at 512 users x 270,170 items:
               the sweep (split into parts and merged at 512) bit for bit
               equal to its plain version, and the merge kernel equal to its
-              plain version on the plain per-part sweeps;
+              plain version on the plain per-part sweeps; the bf16 instance
+              bit for bit on the same tables (|x| <= 64: exact in bf16);
   5. slice    the main path at book-crossing shape: MF tables written to the
               npz bus, served through ``RetrievalServer`` (8 requests of 512
               users, then raw ids) and three-way tested through
@@ -43,7 +46,30 @@ Phases, each printed with its seconds:
               batches, upload, step enqueue, device step from CUDA events,
               validation) is printed; then 20 MF steps on the card are held
               against the same 20 on the CPU from the same tables and
-              batches;
+              batches; the split (item content of 416 N(0,1) columns,
+              book-crossing's) and the MF bus stay for phase cold;
+  cold        the cold-start models through the CLI on that split and bus
+              (d=64, bs 4096): DropoutNet (hidden 200/100, n_dropout 0.5),
+              GAR and ALDI 2 epochs, DeepMusic, DUIF and Heater 1, each
+              with its launch counts zeroed before and read after
+              (``fused_sweep`` must have launched; ALDI's tables are 128
+              wide), its time split, loss and test time logged, and the
+              three-way-test lists of its bus tables held to the plain path
+              by the rule of phase 3; DropoutNet once more under
+              ``--eval_backend pallas_bf16`` (only the bf16 instance may
+              launch; lists held to the plain path on the bf16-rounded
+              tables); then 20 DropoutNet and 20 ALDI steps on the card
+              against the same steps on the CPU (same weights, batches and
+              dropped rows);
+  cold-signal a latent-factor split at MovieLens-1M shape (6,040 x 3,706 x
+              1,000,209, item content 206 columns: a noisy view of the item
+              factors); MF, then DropoutNet on its bus, 5 epochs each
+              through the CLI; the route of every split (kernel or plain
+              sweep) must be the one the JAX package takes (a split with a
+              user rated beyond the kernel's candidates goes plain); the
+              cold-setting NDCG@20 of both and of random tables (chance)
+              are logged side by side, not held to an order (a finding,
+              PERF.md §6);
   7. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
               first their path, driven through the tools' entry points with
               every launch count zeroed just before and read just after
@@ -60,9 +86,11 @@ Phases, each printed with its seconds:
               multiacc at every P at block_i 8192 and at 384 (3 slices, no
               multiple of P > 1), skip at both tile_u;
   8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
-              the 512-user serving request for the sweep and the merge): the
-              kernel, its plain version and one library yardstick, beside
-              the least time the card could take. The merge is timed alone
+              the 512-user serving request for the sweep, its bf16 instance
+              and the merge): the kernel, its plain version and one library
+              yardstick, beside the least time the card could take (for the
+              bf16 instance two bounds: the CUDA cores' fp32 FMA rate and
+              the tensor cores' bf16 rate). The merge is timed alone
               as well (100 launches in one CUDA graph: its device time) at
               512 users x the kernel's parts and 2048 users x 2 parts;
               timing-variants first logs each kernel's registers and spill
@@ -100,8 +128,10 @@ from coldrec_tpu_torch.data.builder import ColdStartDataset
 from coldrec_tpu_torch.data.sampler import pairwise_batches
 from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
 from coldrec_tpu_torch.data.synthetic import (
-    synthetic_dataset, synthetic_interactions,
+    latent_content, latent_interactions, synthetic_dataset,
+    synthetic_interactions,
 )
+from coldrec_tpu_torch.models import TRAINERS
 from coldrec_tpu_torch.models.mf import MF, MFTrainer
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda import retrieval as ret
@@ -164,13 +194,37 @@ STEP_LOSS_RTOL = 1e-5
 STEP_ATOL = 1e-5
 STEP_FLIPS = 1e-5
 STEP_MAX_ERR = 2 * 1e-3 * STEP_CHECK
-WRAPPERS = {
-    "fused_sweep": fused_sweep,
-    "merge_parts": merge_parts,
-    "dot_sweep": erk.dot_sweep,
-    "stream_sweep": erk.stream_sweep,
-    "multiacc_sweep": ema.multiacc_sweep,
-    "skip_sweep": ebs.skip_sweep,
+# Phase cold: the cold-start models through the CLI on phase train's split
+# and MF bus: (model, epochs, flags). Book-crossing's item content has 416
+# columns (BASELINE.md:17).
+COLD_RUNS = (
+    ("DropoutNet", 2, ("--dropoutnet_hidden1", "200", "--dropoutnet_hidden2",
+                       "100", "--n_dropout", "0.5")),
+    ("GAR", 2, ()),
+    ("ALDI", 2, ()),
+    ("DeepMusic", 1, ()),
+    ("DUIF", 1, ()),
+    ("Heater", 1, ()),
+)
+BX_CONTENT = 416
+# DropoutNet's and ALDI's weights after STEP_CHECK steps on the card and the
+# CPU, in relative norm: Adam carries the two trajectories apart from
+# rounding differences (the CPU tests against the JAX package see ~2e-4
+# after 12 steps); their losses stay within STEP_LOSS_RTOL.
+COLD_NORM_RTOL = 1e-3
+# Phase cold-signal: MovieLens-1M (BASELINE config 3's dataset): users,
+# items, interactions and the item content dimension.
+ML = (6_040, 3_706, 1_000_209)
+ML_CONTENT = 206
+# each kernel's launch counter: (wrapper, attribute)
+COUNTERS = {
+    "fused_sweep": (fused_sweep, "launches"),
+    "fused_sweep_bf16": (fused_sweep, "launches_bf16"),
+    "merge_parts": (merge_parts, "launches"),
+    "dot_sweep": (erk.dot_sweep, "launches"),
+    "stream_sweep": (erk.stream_sweep, "launches"),
+    "multiacc_sweep": (ema.multiacc_sweep, "launches"),
+    "skip_sweep": (ebs.skip_sweep, "launches"),
 }
 VARIANTS = ("dot_sweep", "stream_sweep", "multiacc_sweep", "skip_sweep")
 T0 = time.perf_counter()
@@ -208,12 +262,13 @@ def _sync(device: torch.device) -> None:
 
 
 def reset_launches() -> None:
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in COUNTERS.items()}
 
 
 # ------------------------------------------------------------------ checks
@@ -248,14 +303,21 @@ def compare_lists(ue, ie, users, ids_a, ids_b, gap_rel=GAP_REL):
 
 
 def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
-                    seed=0, chunk=512):
-    """Phase 3 at one shape; returns the max abs error and row counts."""
+                    seed=0, chunk=512, bf16=False):
+    """Phase 3 at one shape; returns the max abs error and row counts.
+    ``bf16``: the kernel's bf16 instance, held against the plain version
+    on the bf16-rounded tables (and ``retrieval_topk(bf16=True)`` against
+    the plain path on them)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     users = torch.as_tensor(
         rng.standard_normal((n_users, d), dtype=np.float32), device=device)
     items = torch.as_tensor(
         rng.standard_normal((n_items, d), dtype=np.float32), device=device)
+    kind = torch.bfloat16 if bf16 else torch.float32
+    # the tables whose exact fp32 scores the kernel's lists must hold
+    if bf16:
+        users, items = ret.bf16_round(users), ret.bf16_round(items)
     excluded = np.zeros(n_items, bool)
     excluded[rng.choice(n_items, n_items // 4, replace=False)] = True
     rated = np.full((n_users, r), n_items, np.int32)
@@ -265,7 +327,7 @@ def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
     excl_t = torch.as_tensor(excluded, device=device)
     items_t, excl_row = pad_items(items, excl_t)
 
-    cv, ci, gh = fused_sweep(users, items_t, excl_row)
+    cv, ci, gh = fused_sweep(users.to(kind), items_t.to(kind), excl_row)
     rv, ri, rg = fused_sweep_reference(users, items_t, excl_row)
     _sync(device)
     err = max(float((cv - rv).abs().max()), float((gh - rg).abs().max()))
@@ -293,7 +355,8 @@ def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
     if not worst <= VALUE_TOL:
         raise AssertionError(f"a non-candidate beats the ghost by {worst}")
 
-    vals, ids = retrieval_topk(users, items, rated, excluded, k, device=device)
+    vals, ids = retrieval_topk(users, items, rated, excluded, k, device=device,
+                               bf16=bf16)
     plain = []
     rated_t = torch.as_tensor(rated, device=device)
     for s in range(0, n_users, chunk):
@@ -303,7 +366,8 @@ def kernel_vs_plain(device, n_users, n_items, d=D, k=K, r=RATED_WIDTH,
         plain.append(pi.cpu().numpy())
     rows, equal = compare_lists(users, items, np.arange(n_users), ids,
                                 np.concatenate(plain))
-    log(f"  kernel {n_users}x{n_items} d={d}: max_abs_err={err:.3e} "
+    log(f"  kernel{' bf16' if bf16 else ''} {n_users}x{n_items} d={d}: "
+        f"max_abs_err={err:.3e} "
         f"candidate ids equal {id_equal:.6f}, ghost margin {worst:.3e}, "
         f"top-{k} rows id-equal {equal}/{rows} (others near-ties)")
     return {"max_abs_err": err, "rows": rows, "id_equal_rows": equal}
@@ -348,13 +412,17 @@ def sweep_parts_on(device, n_users, d, i_pad):
                               d, i_pad)
 
 
-def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
+def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0,
+                      bf16=False):
     """``fused_sweep`` bit for bit against its plain version on integer
     tables (every sum exact, many ties) with 20% of the items excluded and,
     with ``nan_items``, that many NaN item rows (three in one lane class),
     whose lane classes' ghosts must be NaN;
     then the merge kernel against its plain version on the plain per-part
-    sweeps, at the kernel's part count for this batch (at least 2)."""
+    sweeps, at the kernel's part count for this batch (at least 2).
+    ``bf16``: the kernel's bf16 instance on the same tables, which bf16
+    holds exactly (|x| <= 64), against the same plain version; no merge
+    check (the merge runs inside the sweep where it splits)."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     ue = rng.integers(-INT_MAX, INT_MAX + 1, (n_users, d)).astype(np.float32)
@@ -368,8 +436,10 @@ def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
     users = torch.as_tensor(ue, device=device)
     items_t, excl_row = pad_items(torch.as_tensor(ie, device=device),
                                   torch.as_tensor(excluded, device=device))
-    got = fused_sweep(users, items_t, excl_row)
-    err = hold_equal("fused_sweep", got,
+    kind = torch.bfloat16 if bf16 else torch.float32
+    name = "fused_sweep_bf16" if bf16 else "fused_sweep"
+    got = fused_sweep(users.to(kind), items_t.to(kind), excl_row)
+    err = hold_equal(name, got,
                      fused_sweep_reference(users, items_t, excl_row))
     if bool(got[0].isnan().any()):
         raise AssertionError("a NaN score reached a slot")
@@ -382,6 +452,11 @@ def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
     filled = got[1][got[0] > INIT_NEG].cpu().numpy()
     if np.isin(filled, nan_rows[~excluded[nan_rows]]).any():
         raise AssertionError("a NaN item is a candidate")
+    if bf16:
+        _sync(device)
+        log(f"  integer table {n_users}x{n_items} d={d}, {len(nan_rows)} "
+            f"NaN items: fused_sweep_bf16 bit-equal to its plain version")
+        return {name: err}
     parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
     pv, pi, pg = sweep_parts_reference(users, items_t, excl_row, parts)
     merr = hold_equal("merge_parts", merge_parts(pv, pi, pg),
@@ -395,17 +470,25 @@ def exact_sweep_check(device, n_users, n_items, d=D, seed=3, nan_items=0):
 
 
 def kernel_ml(device, n_users=2048, n_items=ML_ITEMS):
-    """Phase kernel-ml: the N(0,1) check of phase 3 and the NaN table."""
+    """Phase kernel-ml: the N(0,1) check of phase 3 and the NaN table, for
+    the fp32 sweep and its bf16 instance."""
     out = kernel_vs_plain(device, n_users, n_items)
     exact = exact_sweep_check(device, n_users, n_items, nan_items=200)
+    out16 = kernel_vs_plain(device, n_users, n_items, bf16=True)
+    exact16 = exact_sweep_check(device, n_users, n_items, nan_items=200,
+                                bf16=True)
     return {"max_abs_err": max(out["max_abs_err"], exact["fused_sweep"]),
-            "merge_err": exact["merge_parts"]}
+            "merge_err": exact["merge_parts"],
+            "bf16_err": max(out16["max_abs_err"],
+                            exact16["fused_sweep_bf16"])}
 
 
 def kernel_int(device, n_items=BX[1], sizes=(2048, SERVE_USERS)):
     """Phase kernel-int: integer tables at the eval chunk and the serving
-    shape (where the sweep is split and merged)."""
-    errs = [exact_sweep_check(device, n, n_items, seed=4 + n) for n in sizes]
+    shape (where the sweep is split and merged), fp32 and bf16."""
+    errs = [{**exact_sweep_check(device, n, n_items, seed=4 + n),
+             **exact_sweep_check(device, n, n_items, seed=4 + n, bf16=True)}
+            for n in sizes]
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
@@ -582,54 +665,69 @@ def step_parity(device, data, d, bs, steps=STEP_CHECK, seed=0):
     return loss_err, worst, over, numel
 
 
+def write_split(root, ds, pairs, seed, content_dim, content=None):
+    """The split directory of ``pairs`` under ``root/ds`` (cold items), and
+    its item content: ``content`` (rows in raw item order) or N(0,1) of
+    ``content_dim`` columns from ``seed``."""
+    res = cold_start_split(pairs, cold_object="item", seed=seed + 42)
+    write_split_dir(res, root, ds, "item")
+    if content is None:
+        content = np.random.default_rng(seed + 2).standard_normal(
+            (res.item_num, content_dim), dtype=np.float32)
+    np.save(os.path.join(root, ds, f"{ds}_item_content.npy"), content)
+    return res
+
+
 def train_run(device, n_users, n_items, n_inter, d=D, epochs=3, bs=4096,
-              topN=(10, 20), seed=0, steps=STEP_CHECK):
+              topN=(10, 20), seed=0, steps=STEP_CHECK, root=None,
+              content_dim=1):
     """Phase train: MF trained through the port's CLI entry
     (``coldrec_tpu_torch.main.run``) on a split directory at the given
     shape, validated every epoch through the retrieval kernel, then checked.
-    Returns the launches of each kernel counted during the run."""
+    The split directory (item content of ``content_dim`` N(0,1) columns)
+    and the MF bus stay under ``root`` when given, for phase cold. Returns
+    the launches of each kernel counted during the run."""
+    if root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return train_run(device, n_users, n_items, n_inter, d, epochs,
+                             bs, topN, seed, steps, tmp, content_dim)
     device = torch.device(device)
     top = max(topN)
-    with tempfile.TemporaryDirectory() as root:
-        t = time.perf_counter()
-        pairs = synthetic_interactions(n_users, n_items, n_inter, seed=seed)
-        res = cold_start_split(pairs, cold_object="item", seed=seed + 42)
-        write_split_dir(res, root, "bx_synth", "item")
-        np.save(os.path.join(root, "bx_synth", "bx_synth_item_content.npy"),
-                np.zeros((res.item_num, 1), np.float32))
-        events = os.path.join(root, "events.jsonl")
-        os.environ["COLDREC_EVENT_LOG"] = events
-        if event_log().path != events:
-            raise RuntimeError("the event log was opened before this phase")
-        log(f"  split dir written ({time.perf_counter() - t:.2f} s)")
-        args = make_args([
-            "--model", "MF", "--dataset", "bx_synth", "--cold_object", "item",
-            "--data_dir", root, "--emb_dir", os.path.join(root, "emb"),
-            "--result_file", os.path.join(root, "result.txt"),
-            "--epochs", str(epochs), "--bs", str(bs), "--emb_size", str(d),
-            "--lr", "0.001", "--reg", "0.0001", "--topN",
-            ",".join(map(str, topN)), "--early_stop", "10", "--eval_every",
-            "1", "--seed", str(seed), "--device", device.type])
-        reset_launches()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            payload = tmain.run(args)
-        _sync(device)
-        t_run = time.perf_counter() - t
-        launches = {name: launch_counts()[name]
-                    for name in ("fused_sweep", "merge_parts")}
-        text = out.getvalue()
-        log("\n".join("  | " + ln for ln in text.splitlines()
-                      if ln.startswith(("training:", "Epoch:", "Time:",
-                                        "Results written"))))
-        with open(args.result_file) as f:
-            result = f.read()
-        if "--- JSON (machine-readable) ---" not in result:
-            raise AssertionError("the result file has no JSON block")
-        bus = load_embeddings(args.emb_dir, "bx_synth", "item", "MF")
-        event_log().close()
-        evs = read_events(events)
-        data = ColdStartDataset.from_split_dir(root, "bx_synth", "item")
+    t = time.perf_counter()
+    pairs = synthetic_interactions(n_users, n_items, n_inter, seed=seed)
+    write_split(root, "bx_synth", pairs, seed, content_dim)
+    events = os.path.join(root, "events.jsonl")
+    os.environ["COLDREC_EVENT_LOG"] = events
+    log(f"  split dir written, item content {content_dim} columns "
+        f"({time.perf_counter() - t:.2f} s)")
+    args = make_args([
+        "--model", "MF", "--dataset", "bx_synth", "--cold_object", "item",
+        "--data_dir", root, "--emb_dir", os.path.join(root, "emb"),
+        "--result_file", os.path.join(root, "result.txt"),
+        "--epochs", str(epochs), "--bs", str(bs), "--emb_size", str(d),
+        "--lr", "0.001", "--reg", "0.0001", "--topN",
+        ",".join(map(str, topN)), "--early_stop", "10", "--eval_every",
+        "1", "--seed", str(seed), "--device", device.type])
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        payload = tmain.run(args)
+    _sync(device)
+    t_run = time.perf_counter() - t
+    launches = {name: launch_counts()[name]
+                for name in ("fused_sweep", "merge_parts")}
+    text = out.getvalue()
+    log("\n".join("  | " + ln for ln in text.splitlines()
+                  if ln.startswith(("training:", "Epoch:", "Time:",
+                                    "Results written"))))
+    with open(args.result_file) as f:
+        result = f.read()
+    if "--- JSON (machine-readable) ---" not in result:
+        raise AssertionError("the result file has no JSON block")
+    bus = load_embeddings(args.emb_dir, "bx_synth", "item", "MF")
+    event_log().close()
+    evs = read_events(events)
+    data = ColdStartDataset.from_split_dir(root, "bx_synth", "item")
 
     epoch_evs = [e for e in evs if e["event"] == "epoch"]
     val_evs = [e for e in evs if e["event"] == "validation"]
@@ -699,6 +797,283 @@ def train_run(device, n_users, n_items, n_inter, d=D, epochs=3, bs=4096,
     return launches
 
 
+# ------------------------------------------------------ the cold-start path
+def cli_run(device, root, ds, model, epochs, flags=(), d=D, bs=4096, seed=0,
+            topN=(10, 20), tag=None):
+    """One run of the port's CLI (``coldrec_tpu_torch.main.run``) on the
+    split directory ``root/ds`` with the bus under ``root/emb``, the launch
+    counts zeroed just before and read just after. Returns (payload,
+    launches, events, seconds)."""
+    device = torch.device(device)
+    tag = tag or model
+    events = os.path.join(root, f"events_{tag}.jsonl")
+    os.environ["COLDREC_EVENT_LOG"] = events
+    args = make_args([
+        "--model", model, "--dataset", ds, "--cold_object", "item",
+        "--data_dir", root, "--emb_dir", os.path.join(root, "emb"),
+        "--result_file", os.path.join(root, f"result_{tag}.txt"),
+        "--epochs", str(epochs), "--bs", str(bs), "--emb_size", str(d),
+        "--topN", ",".join(map(str, topN)), "--seed", str(seed),
+        "--device", device.type, *flags])
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        payload = tmain.run(args)
+    _sync(device)
+    secs = time.perf_counter() - t
+    launches = launch_counts()
+    event_log().close()
+    return payload, launches, read_events(events), secs
+
+
+def log_epochs(evs):
+    """Log each epoch's time split from the event log; returns the batch
+    losses' means over the first and last (up to) 50 batches."""
+    for e in (e for e in evs if e["event"] == "epoch"):
+        log(f"    epoch {e['epoch']}: {e['batches']} steps in "
+            f"{e['train_s']:.3f} s ({e['batches'] / e['train_s']:.1f} "
+            f"steps/s): host batches {e['host_s']:.3f} s, upload "
+            f"{e['upload_s']:.3f} s, step enqueue {e['step_host_s']:.3f} s, "
+            f"device step {e['step_device_s']:.3f} s; validation "
+            f"{e['validation_s']:.3f} s")
+    losses = [x for e in evs if e["event"] == "epoch" for x in e["losses"]]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite or no batch losses: {losses[:5]}")
+    w = max(1, min(50, len(losses) // 2))
+    return float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+
+
+def routes(evs) -> dict:
+    """{split: sorted routes} of the run's sweeps (``sweep_route``)."""
+    out = {}
+    for e in evs:
+        if e["event"] == "sweep_route":
+            out.setdefault(e["split"], set()).add(e["route"])
+    return {k: sorted(v) for k, v in sorted(out.items())}
+
+
+def lists_vs_plain(data, ue, ie, device, backend="kernel", topN=(10, 20)):
+    """The three-way test of (ue, ie) through ``backend`` against the plain
+    path (on the bf16-rounded tables for ``kernel_bf16``), by the rule of
+    ``compare_lists``; returns {setting: (rows, id-equal rows)} and the
+    kernel launches of the test."""
+    reset_launches()
+    got = three_way_test(data, ue, ie, topN=topN, backend=backend,
+                         device=device, verbose=False)
+    launches = launch_counts()
+    if backend == "kernel_bf16":
+        ue, ie = ret.bf16_round(ue), ret.bf16_round(ie)
+    plain = three_way_test(data, ue, ie, topN=topN, backend="plain",
+                           device=device, verbose=False)
+    out = {}
+    for setting, res in got.items():
+        es = data.eval_splits[SETTING_SPLITS[(setting, "test")]]
+        out[setting] = compare_lists(ue, ie, es.users, res["rec"],
+                                     plain[setting]["rec"])
+    return out, launches
+
+
+def noise_walked(name: str) -> bool:
+    """A Linear bias right ahead of a BatchNorm (DropoutNet's tower blocks,
+    ALDI's fc1): its exact gradient is 0, and Adam moves it by ~lr a step
+    on rounding noise of either sign, differently on each device."""
+    return name.endswith(".bias") and (".lins." in name or ".fc1." in name)
+
+
+def cold_step_parity(device, data, root, model, d=D, bs=4096,
+                     steps=STEP_CHECK, seed=0):
+    """``steps`` steps of ``model`` on ``device`` and on the CPU from the
+    same weights and batches (DropoutNet: the same rows dropped, drawn once
+    on the host). Returns (loss max rel err, weights max relative norm gap
+    without the noise-walked biases, eval tables of the card's final
+    weights and state on both devices: max abs err over the table scale)."""
+    device = torch.device(device)
+    cpu = torch.device("cpu")
+    trainers = [TRAINERS[model](Config(default_args(
+        model=model, dataset="bx_synth", cold_object="item", emb_size=d,
+        bs=bs, seed=seed, save_emb=False, emb_dir=os.path.join(root, "emb"),
+        device=str(dev)), data)) for dev in (device, cpu)]
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    gen = torch.Generator().manual_seed(seed)
+    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
+    losses = []
+    for _, batch in zip(range(steps), batches):
+        kw = [{}, {}]
+        if model == "DropoutNet":
+            n = len(batch["user"])
+            n_zero = int(n * trainers[0].n_dropout)
+            masks = []
+            for _ in range(2):
+                m = torch.ones(n)
+                m[torch.randperm(n, generator=gen)[:n_zero]] = 0.0
+                masks.append(m)
+            kw = [{"masks": tuple(m.to(t.device) for m in masks)}
+                  for t in trainers]
+        losses.append([float(t.train_step(t.upload(batch), **k))
+                       for t, k in zip(trainers, kw)])
+    losses = np.asarray(losses)
+    loss_err = float(np.max(np.abs(losses[:, 0] - losses[:, 1])
+                            / np.abs(losses[:, 1])))
+    cpu_params = dict(trainers[1].model.named_parameters())
+    gap = 0.0
+    for name, p in trainers[0].model.named_parameters():
+        if noise_walked(name):
+            continue
+        want = cpu_params[name].detach()
+        gap = max(gap, float((p.detach().cpu() - want).norm()
+                             / want.norm().clamp_min(1e-30)))
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    table_err = 0.0
+    for t in trainers:
+        t.refresh_tables()
+    for a, b in zip((trainers[0].user_emb, trainers[0].item_emb),
+                    (trainers[1].user_emb, trainers[1].item_emb)):
+        table_err = max(table_err, float((a.cpu() - b).abs().max()
+                                         / b.abs().max()))
+    return loss_err, gap, table_err
+
+
+def cold_run(device, root, ds="bx_synth", runs=COLD_RUNS, d=D, bs=4096,
+             topN=(10, 20), seed=0, steps=STEP_CHECK):
+    """Phase cold: each cold-start model through the CLI on phase train's
+    split and MF bus, then checked; DropoutNet once more under
+    ``--eval_backend pallas_bf16``; then DropoutNet's and ALDI's steps on the
+    card against the CPU. Returns the launches of each kernel counted
+    during the bf16 run and, per model, during its CLI run."""
+    device = torch.device(device)
+    top = str(max(topN))
+    t = time.perf_counter()
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    log(f"  split dir read ({time.perf_counter() - t:.2f} s): "
+        f"{data.user_num} users x {data.item_num} items, item content "
+        f"{data.item_content.shape[1]} columns, max rated {data.max_rated}")
+    per_model = {}
+    for model, epochs, flags in runs:
+        payload, launches, evs, secs = cli_run(device, root, ds, model,
+                                               epochs, flags, d, bs, seed,
+                                               topN)
+        first, last = log_epochs(evs)
+        end = [e for e in evs if e["event"] == "run_end"][0]
+        bus = load_embeddings(os.path.join(root, "emb"), ds, "item", model)
+        ue = torch.as_tensor(bus["user_emb"], device=device)
+        ie = torch.as_tensor(bus["item_emb"], device=device)
+        width = ue.shape[1]
+        if width != (2 * d if model == "ALDI" else d):
+            raise AssertionError(f"{model}: eval tables of width {width}")
+        equal, test_launches = lists_vs_plain(data, ue, ie, device,
+                                              topN=topN)
+        per_model[model] = launches
+        log(f"  {model}: {epochs} epoch(s) in {secs:.2f} s (CLI, set-up "
+            f"included); loss {first:.5f} -> {last:.5f}; kernel launches "
+            f"{ {k: v for k, v in launches.items() if v} } at d={width} "
+            f"(three-way test alone: {test_launches['fused_sweep']}); "
+            f"three-way test {end['test_seconds']:.3f} s; seconds per epoch "
+            f"{payload['efficiency']['seconds_per_completed_epoch_mean']:.3f};"
+            f" NDCG@{top} cold "
+            f"{payload['metrics'][top]['cold']['NDCG']['mean']:.5f} warm "
+            f"{payload['metrics'][top]['warm']['NDCG']['mean']:.5f}; routes "
+            f"{routes(evs)}; test lists id-equal to the plain path "
+            + ", ".join(f"{s} {e}/{r}" for s, (r, e) in equal.items()))
+        if device.type == "cuda" and not launches["fused_sweep"] > 0:
+            raise AssertionError(f"{model} left the kernel unlaunched")
+
+    model, _, flags = runs[0]
+    payload, launches, evs, secs = cli_run(
+        device, root, ds, model, 1, [*flags, "--eval_backend", "pallas_bf16"],
+        d, bs, seed, topN, tag=f"{model}_bf16")
+    log_epochs(evs)
+    bus = load_embeddings(os.path.join(root, "emb"), ds, "item", model)
+    ue = torch.as_tensor(bus["user_emb"], device=device)
+    ie = torch.as_tensor(bus["item_emb"], device=device)
+    equal, _ = lists_vs_plain(data, ue, ie, device, "kernel_bf16", topN)
+    log(f"  {model} --eval_backend pallas_bf16: 1 epoch in {secs:.2f} s; "
+        f"kernel launches { {k: v for k, v in launches.items() if v} }; "
+        f"routes {routes(evs)}; NDCG@{top} cold "
+        f"{payload['metrics'][top]['cold']['NDCG']['mean']:.5f}; test lists "
+        "id-equal to the plain bf16 path "
+        + ", ".join(f"{s} {e}/{r}" for s, (r, e) in equal.items()))
+    if device.type == "cuda" and not (launches["fused_sweep_bf16"] > 0
+                                      and launches["fused_sweep"] == 0):
+        raise AssertionError(f"the bf16 run's launches: {launches}")
+
+    for model in ("DropoutNet", "ALDI"):
+        t = time.perf_counter()
+        loss_err, gap, table_err = cold_step_parity(device, data, root,
+                                                    model, d, bs, steps,
+                                                    seed)
+        log(f"  {model}: {steps} steps {device.type} vs cpu "
+            f"({time.perf_counter() - t:.2f} s): loss max rel err "
+            f"{loss_err:.3e}, weights max relative norm gap {gap:.3e} "
+            f"(noise-walked biases left out), eval tables of one set of "
+            f"weights max rel err {table_err:.3e}")
+        if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
+                and table_err <= STEP_LOSS_RTOL):
+            raise AssertionError(f"{model}: the card's steps disagree with "
+                                 "the CPU's")
+    return launches, per_model
+
+
+def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
+               content_dim=ML_CONTENT, d=D, epochs=5, bs=4096, seed=0,
+               topN=(10, 20)):
+    """Phase cold-signal: a latent-factor split (content a noisy view of
+    the item factors) at the given shape; MF, then DropoutNet on its bus,
+    each ``epochs`` epochs through the CLI. Every split must take the
+    route the JAX package takes (``EvalSweep.kernel_supported``: plain
+    where a user is rated beyond the kernel's candidates). Logs the
+    cold-setting NDCG of both beside chance (seeded N(0,1) tables through
+    the same test): whether DropoutNet's content lifts its cold ranking
+    above MF's (whose cold rows never see a positive) is a finding of the
+    run, not a check. Returns the cold NDCGs."""
+    device = torch.device(device)
+    top = str(max(topN))
+    t = time.perf_counter()
+    pairs, _, vf = latent_interactions(n_users, n_items, nnz, seed=seed)
+    res = write_split(root, "ml_latent", pairs, seed, content_dim,
+                      latent_content(vf, content_dim, seed=seed))
+    degree = np.bincount(res.warm_train[:, 0])
+    log(f"  latent split written ({time.perf_counter() - t:.2f} s): "
+        f"{len(pairs)} pairs, max train degree {degree.max()}, "
+        f"{int((degree > CANDIDATES - max(topN)).sum())} users above "
+        f"{CANDIDATES - max(topN)}")
+    data = ColdStartDataset.from_split_dir(root, "ml_latent", "item")
+    sweep = EvalSweep(data, "item", bs, max(topN), device=device)
+    expected = {split: ["kernel" if sweep.kernel_supported(split, kind)
+                        else "plain"]
+                for (kind, _), split in SETTING_SPLITS.items()}
+    cold = {}
+    for model, flags in (("MF", []), ("DropoutNet", list(COLD_RUNS[0][2]))):
+        payload, launches, evs, secs = cli_run(device, root, "ml_latent",
+                                               model, epochs, flags, d, bs,
+                                               seed, topN)
+        first, last = log_epochs(evs)
+        cold[model] = payload["metrics"][top]["cold"]["NDCG"]["mean"]
+        log(f"  {model}: {epochs} epochs in {secs:.2f} s; loss {first:.5f} "
+            f"-> {last:.5f}; NDCG@{top} cold {cold[model]:.5f} all "
+            f"{payload['metrics'][top]['all']['NDCG']['mean']:.5f}; kernel "
+            f"launches { {k: v for k, v in launches.items() if v} }; routes "
+            f"{routes(evs)}")
+        for split, route in routes(evs).items():
+            if route != expected[split]:
+                raise AssertionError(f"{model} {split}: route {route}, the "
+                                     f"JAX package's {expected[split]}")
+        if not np.isfinite(cold[model]):
+            raise AssertionError(f"{model}: cold NDCG {cold[model]}")
+    rng = np.random.default_rng(seed + 3)
+    chance = three_way_test(
+        data, *(torch.as_tensor(rng.standard_normal((n, d), dtype=np.float32),
+                                device=device)
+                for n in (data.user_num, data.item_num)),
+        topN=topN, device=device, verbose=False)
+    cold["chance"] = float(chance["cold"]["performance"][-1][3])
+    log(f"  chance (N(0,1) tables): NDCG@{top} cold {cold['chance']:.5f} all "
+        f"{chance['all']['performance'][-1][3]:.5f}")
+    order = sorted(cold, key=cold.get, reverse=True)
+    log(f"  cold NDCG@{top}, highest first: "
+        + ", ".join(f"{k} {cold[k]:.5f}" for k in order))
+    return cold
+
+
 def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
                r=RATED_WIDTH, seed=0, reps=20):
     """Phase 6: CUDA-event milliseconds of one sweep, plus the bound."""
@@ -730,6 +1105,63 @@ def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
         "bound_ms": bound, "bound_by": by, "flops": flops,
         "bytes": bytes_moved,
+    }
+
+
+def bf16_library(device):
+    """(name, fn): one library call scoring bf16 tables, ``fn(users,
+    items) -> scores``: ``torch.mm`` with fp32 output where this torch
+    offers ``out_dtype`` on ``device``, else with bf16 output."""
+    a = torch.zeros((2, 2), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+        return ("bf16 mm, fp32 output",
+                lambda u, i: torch.mm(u, i.T, out_dtype=torch.float32))
+    except (TypeError, RuntimeError):
+        return "bf16 mm, bf16 output", lambda u, i: torch.mm(u, i.T)
+
+
+def time_sweep_bf16(device, n_users=2048, n_items=BX[1], d=D, k=K,
+                    r=RATED_WIDTH, seed=0, reps=20):
+    """The bf16 sweep at one shape (the tables of ``time_sweep``, rounded):
+    CUDA-event ms of the kernel, its plain version's and a library
+    yardstick's (a bf16 matmul + ``torch.topk``), beside two bounds: the
+    CUDA cores' fp32 FMA rate (67 TFLOP/s; this kernel's design) and the
+    tensor cores' bf16 rate (989 TFLOP/s) against bf16 bytes (what a
+    tensor-core sweep could reach)."""
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    users = torch.as_tensor(
+        rng.standard_normal((n_users, d), dtype=np.float32),
+        device=device).bfloat16()
+    items = torch.as_tensor(
+        rng.standard_normal((n_items, d), dtype=np.float32),
+        device=device).bfloat16()
+    excl = torch.zeros(n_items, dtype=torch.bool, device=device)
+    excl[torch.as_tensor(rng.choice(n_items, n_items // 4, replace=False),
+                         device=device)] = True
+    items_t, excl_row = pad_items(items, excl)
+
+    def timed(fn, n):
+        return erk.time_ms(fn, n, device, repeats=1)
+
+    ms = timed(lambda: fused_sweep(users, items_t, excl_row), reps)
+    plain_ms = timed(lambda: fused_sweep_reference(
+        users.float(), items_t.float(), excl_row), 3)
+    library, score = bf16_library(device)
+    lib_ms = timed(lambda: torch.topk(score(users, items), k + r, dim=1), 5)
+    i_pad = items_t.shape[1]
+    flops = 2.0 * n_users * n_items * d
+    bytes_moved = (n_users * d * 2 + d * i_pad * 2 + i_pad
+                   + n_users * CANDIDATES * 8 + n_users * LANES * 4)
+    t_tc = flops / 989e12 * 1e3
+    t_bytes = bytes_moved / 3.35e12 * 1e3
+    return {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": library, "bound_ms": max(t_tc, t_bytes),
+        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+        "fp32_fma_bound_ms": sweep_bound(flops, bytes_moved)[0],
+        "flops": flops, "bytes": bytes_moved,
     }
 
 
@@ -949,7 +1381,8 @@ def kernel_registers(ptxas: str) -> None:
     # stream and multiacc are instances of one template, told apart by
     # their chain
     for name, kernel in (
-            ("fused_sweep", "fused_sweep_kernel"),
+            ("fused_sweep", "fused_sweep_kernelIf"),
+            ("fused_sweep_bf16", "fused_sweep_kernelI13__nv_bfloat16"),
             ("merge_parts", "merge_parts_kernel"),
             ("dot_sweep", "dot_sweep_kernel"),
             ("stream_sweep", r"chain_sweep_kernel\w*StreamChain"),
@@ -1083,7 +1516,12 @@ def main() -> int:
     ]
     exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
-    run_phase("train", train_run, device, *BX)
+    with tempfile.TemporaryDirectory() as root:
+        run_phase("train", train_run, device, *BX, root=root,
+                  content_dim=BX_CONTENT)
+        bf16_launches, _ = run_phase("cold", cold_run, device, root)
+    with tempfile.TemporaryDirectory() as root:
+        run_phase("cold-signal", signal_run, device, root)
     variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
@@ -1092,6 +1530,16 @@ def main() -> int:
             f"plain {r['plain_ms']:.3f} ms, library (matmul+topk) "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}: {r['flops']:.3e} FLOP, {r['bytes']:.3e} B)")
+    b16 = time_sweep_bf16(device)
+    b16_512 = time_sweep_bf16(device, n_users=SERVE_USERS)
+    for n, r in ((2048, b16), (SERVE_USERS, b16_512)):
+        log(f"  bf16 sweep {n} x {BX[1]} d={D} [{smi}]: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, library "
+            f"({r['library']} + topk({K + RATED_WIDTH})) "
+            f"{r['library_ms']:.3f} ms; bound on the CUDA cores (fp32 FMA) "
+            f"{r['fp32_fma_bound_ms']:.3f} ms, on the tensor cores "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}: {r['flops']:.3e} "
+            f"FLOP, {r['bytes']:.3e} B)")
     tm = time_merge(device)
     time_merge(device, n_users=2048, parts=2)
     tv = run_phase("timing-variants", time_variants, device,
@@ -1110,6 +1558,16 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+    }, {
+        "name": "fused_sweep_bf16",
+        "route": "cuda",
+        "source": "coldrec_tpu_torch/csrc/retrieval.cu",
+        "replaces": "coldrec_tpu/ops/pallas/retrieval.py:281",
+        "launches": bf16_launches["fused_sweep_bf16"],
+        "max_abs_err": max(errs[1]["bf16_err"], exact["fused_sweep_bf16"]),
+        **{k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "fp32_fma_bound_ms", "library_ms",
+                               "library")},
     }, {
         "name": "merge_parts",
         "route": "cuda",

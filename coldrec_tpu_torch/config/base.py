@@ -42,8 +42,8 @@ COMMON_DEFAULTS = dict(
     # device mesh "DxM"; the port runs one device (ROADMAP Queue 1, item 7)
     mesh="",
     # retrieval sweep: auto / pallas = the hand-written retrieval kernel
-    # (its plain version on the CPU), xla = the plain matmul + top-k;
-    # pallas_bf16 waits for ROADMAP Queue 2, item 2
+    # (its plain version on the CPU), pallas_bf16 = its bf16 mode, xla =
+    # the plain matmul + top-k
     eval_backend="auto",
     # profiler trace directory and NaN trap of the JAX CLI (not in the port)
     profile="",

@@ -1,20 +1,43 @@
-"""Per-model flag registry (the port's copy of the MF part of
+"""Per-model flag registry (the port's copy of the ported models' part of
 ``coldrec_tpu/config/model_params.py``; reference config/model_param.py).
 
-MF adds no flags of its own. Every other model of the JAX package is refused
-with the ROADMAP queue item that brings it to the port.
+MF, DeepMusic and DUIF add no flags of their own. Every model of the JAX
+package that is not ported yet is refused with the ROADMAP queue item that
+brings it to the port.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Dict
 
-MODEL_PARAM_REGISTRY: Dict[str, dict] = {"MF": {}}
+MODEL_PARAM_REGISTRY: Dict[str, dict] = {
+    "MF": {},
+    "DropoutNet": {
+        "n_dropout": 0.5,
+        "dropoutnet_hidden1": 200,
+        "dropoutnet_hidden2": 100,
+    },
+    "GAR": {"alpha": 0.05, "beta": 0.1},
+    "ALDI": {
+        "alpha": 0.9,
+        "beta": 0.05,
+        "gamma": 0.1,
+        "tws": 0,
+        "freq_coef_M": 4.0,
+        "aldi_hidden": 200,
+    },
+    "DeepMusic": {},
+    "DUIF": {},
+    "Heater": {
+        "n_expert": 5,
+        "n_dropout": 0.5,
+        "alpha": 0.5,
+        "heater_mlp_hidden": 200,
+    },
+}
 
 # ROADMAP.md, Queue 1: the item that ports each model of the JAX package
 _QUEUE_ITEM = {
-    **dict.fromkeys(("DropoutNet", "DeepMusic", "GAR", "Heater", "ALDI",
-                     "DUIF"), 3),
     **dict.fromkeys(("LightGCN", "NGCF", "SimGCL", "XSimGCL", "NCL"), 4),
     **dict.fromkeys(("KNN", "AGNN"), 5),
     **dict.fromkeys(("VBPR", "AMR", "MTPR", "LARA", "MetaEmbedding",

@@ -18,6 +18,16 @@
 // score not above INIT_NEG leaves the ghost as it is. Every item that is
 // not a candidate scores <= its class's ghost, unless that ghost is NaN.
 //
+// bf16 mode (coldrec_fused_sweep_bf16) replaces the same kernel fed bf16
+// operands (_sweep_padded(bf16=True), retrieval.py:281-316): users and
+// items_t are __nv_bfloat16, everything else is as above. The tile stages
+// the items as bf16 and widens them to float in registers
+// (sweep_tile.cuh), so the scores are the fp32 FFMA chains of the widened
+// operands: every product of two bf16 values is exact in fp32, and the
+// result is the exact top-k of the bf16-rounded scores with only the order
+// of the fp32 sums free. Still CUDA-core FFMAs: the tensor cores' bf16
+// rate is later work.
+//
 // What bounds it on an H100: the products. At B=2048, I=270,170, d=64 the
 // sweep is 2*B*I*d = 7.1e10 fp32 operations (1.06 ms at 67 TFLOP/s outside
 // the tensor cores; exact fp32 products are the contract, so no TF32 and no
@@ -117,17 +127,17 @@ struct TopEpilogue {
   }
 };
 
-template <int LAYOUT, bool RESIDENT>
+template <class T, int LAYOUT, bool RESIDENT>
 __global__ void __launch_bounds__(Sweep::THREADS, 1)
-fused_sweep_kernel(const float* __restrict__ users,
-                   const float* __restrict__ items_t,
+fused_sweep_kernel(const T* __restrict__ users,
+                   const T* __restrict__ items_t,
                    const int8_t* __restrict__ excl,
                    float* __restrict__ out_v, int* __restrict__ out_i,
                    float* __restrict__ out_g, int n_users, int d, int i_pad,
                    int parts) {
   extern __shared__ float4 smem4[];
-  const Tile t{users, items_t, n_users, d, i_pad,
-               (int)blockIdx.x * Sweep::TU};
+  const TileOf<T> t{users, items_t, n_users, d, i_pad,
+                    (int)blockIdx.x * Sweep::TU};
   const int groups = i_pad / LANES;
   const int p = blockIdx.y;
   TopEpilogue epi;
@@ -198,34 +208,60 @@ merge_parts_kernel(const float* __restrict__ part_v,
   ghost[(size_t)row * LANES + c] = gh;
 }
 
-template <int LAYOUT, bool RESIDENT>
-int launch_sweep(const float* users, const float* items_t,
-                 const int8_t* excl, float* out_v, int* out_i, float* out_g,
-                 int n_users, int d, int i_pad, int parts,
-                 cudaStream_t stream) {
-  const size_t smem = Sweep::smem_bytes<RESIDENT>(d);
+template <class T, int LAYOUT, bool RESIDENT>
+int launch_sweep(const T* users, const T* items_t, const int8_t* excl,
+                 float* out_v, int* out_i, float* out_g, int n_users, int d,
+                 int i_pad, int parts, cudaStream_t stream) {
+  const size_t smem = Sweep::smem_bytes<RESIDENT, T>(d);
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_sweep_kernel<LAYOUT, RESIDENT>,
+      fused_sweep_kernel<T, LAYOUT, RESIDENT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n_users + Sweep::TU - 1) / Sweep::TU, parts);
-  fused_sweep_kernel<LAYOUT, RESIDENT><<<grid, Sweep::THREADS, smem, stream>>>(
-      users, items_t, excl, out_v, out_i, out_g, n_users, d, i_pad, parts);
+  fused_sweep_kernel<T, LAYOUT, RESIDENT>
+      <<<grid, Sweep::THREADS, smem, stream>>>(users, items_t, excl, out_v,
+                                               out_i, out_g, n_users, d,
+                                               i_pad, parts);
   return (int)cudaGetLastError();
 }
 
-template <int LAYOUT>
-int launch_sweep(const float* users, const float* items_t,
-                 const int8_t* excl, float* out_v, int* out_i, float* out_g,
-                 int n_users, int d, int i_pad, int parts,
-                 cudaStream_t stream) {
-  return Sweep::resident(d)
-             ? launch_sweep<LAYOUT, true>(users, items_t, excl, out_v, out_i,
-                                          out_g, n_users, d, i_pad, parts,
-                                          stream)
-             : launch_sweep<LAYOUT, false>(users, items_t, excl, out_v, out_i,
-                                           out_g, n_users, d, i_pad, parts,
-                                           stream);
+template <class T, int LAYOUT>
+int launch_sweep(const T* users, const T* items_t, const int8_t* excl,
+                 float* out_v, int* out_i, float* out_g, int n_users, int d,
+                 int i_pad, int parts, cudaStream_t stream) {
+  return Sweep::resident<T>(d)
+             ? launch_sweep<T, LAYOUT, true>(users, items_t, excl, out_v,
+                                             out_i, out_g, n_users, d, i_pad,
+                                             parts, stream)
+             : launch_sweep<T, LAYOUT, false>(users, items_t, excl, out_v,
+                                              out_i, out_g, n_users, d, i_pad,
+                                              parts, stream);
+}
+
+template <class T>
+int sweep_parts(int n_users, int d, int i_pad) {
+  if (n_users <= 0 || d <= 0 || i_pad < LANES) return 1;
+  const int groups = i_pad / LANES;
+  const int parts =
+      Sweep::resident<T>(d)
+          ? choose_parts<Sweep>(fused_sweep_kernel<T, kRows16, true>,
+                                Sweep::smem_bytes<true, T>(d), n_users,
+                                groups)
+          : choose_parts<Sweep>(fused_sweep_kernel<T, kRows16, false>,
+                                Sweep::smem_bytes<false, T>(d), n_users,
+                                groups);
+  return parts > 0 ? parts : -1;
+}
+
+// the contract's checks of coldrec_fused_sweep(_bf16): an error code, or
+// -1 where the arguments pass
+int check_sweep(int n_users, int d, int i_pad, int parts) {
+  if (d <= 0 || i_pad % LANES) return (int)cudaErrorInvalidValue;
+  if (n_users <= 0 || i_pad <= 0) return (int)cudaSuccess;
+  if (parts < 1 || parts > i_pad / LANES || parts > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return -1;
 }
 
 }  // namespace
@@ -233,15 +269,13 @@ int launch_sweep(const float* users, const float* items_t,
 // The number of item ranges coldrec_fused_sweep splits a sweep of n_users
 // into on the current device (>= 1), or -1 on a CUDA error.
 extern "C" int coldrec_fused_sweep_parts(int n_users, int d, int i_pad) {
-  if (n_users <= 0 || d <= 0 || i_pad < LANES) return 1;
-  const int groups = i_pad / LANES;
-  const int parts =
-      Sweep::resident(d)
-          ? choose_parts<Sweep>(fused_sweep_kernel<kRows16, true>,
-                                Sweep::smem_bytes<true>(d), n_users, groups)
-          : choose_parts<Sweep>(fused_sweep_kernel<kRows16, false>,
-                                Sweep::smem_bytes<false>(d), n_users, groups);
-  return parts > 0 ? parts : -1;
+  return sweep_parts<float>(n_users, d, i_pad);
+}
+
+// The same for coldrec_fused_sweep_bf16.
+extern "C" int coldrec_fused_sweep_bf16_parts(int n_users, int d,
+                                              int i_pad) {
+  return sweep_parts<__nv_bfloat16>(n_users, d, i_pad);
 }
 
 // Launches on `stream` (PyTorch's current stream); allocates nothing and
@@ -254,11 +288,8 @@ extern "C" int coldrec_fused_sweep(const void* users, const void* items_t,
                                    const void* excl, void* out_v, void* out_i,
                                    void* out_g, int n_users, int d, int i_pad,
                                    int parts, void* stream) {
-  if (d <= 0 || i_pad % LANES) return (int)cudaErrorInvalidValue;
-  if (n_users <= 0 || i_pad <= 0) return (int)cudaSuccess;
-  if (parts < 1 || parts > i_pad / LANES || parts > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int bad = check_sweep(n_users, d, i_pad, parts);
+  if (bad >= 0) return bad;
   const float* u = static_cast<const float*>(users);
   const float* it = static_cast<const float*>(items_t);
   const int8_t* ex = static_cast<const int8_t*>(excl);
@@ -267,11 +298,31 @@ extern "C" int coldrec_fused_sweep(const void* users, const void* items_t,
   float* og = static_cast<float*>(out_g);
   const cudaStream_t s = (cudaStream_t)stream;
   if (reinterpret_cast<uintptr_t>(items_t) % 16 == 0) {
-    return launch_sweep<kRows16>(u, it, ex, ov, oi, og, n_users, d, i_pad,
-                                 parts, s);
+    return launch_sweep<float, kRows16>(u, it, ex, ov, oi, og, n_users, d,
+                                        i_pad, parts, s);
   }
-  return launch_sweep<kRows4>(u, it, ex, ov, oi, og, n_users, d, i_pad, parts,
-                              s);
+  return launch_sweep<float, kRows4>(u, it, ex, ov, oi, og, n_users, d, i_pad,
+                                     parts, s);
+}
+
+// coldrec_fused_sweep on __nv_bfloat16 users (B, d) and items_t (d, I_pad);
+// items_t must be 16-byte aligned (cudaErrorInvalidValue otherwise).
+extern "C" int coldrec_fused_sweep_bf16(const void* users,
+                                        const void* items_t, const void* excl,
+                                        void* out_v, void* out_i, void* out_g,
+                                        int n_users, int d, int i_pad,
+                                        int parts, void* stream) {
+  const int bad = check_sweep(n_users, d, i_pad, parts);
+  if (bad >= 0) return bad;
+  if (reinterpret_cast<uintptr_t>(items_t) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_sweep<__nv_bfloat16, kRows16>(
+      static_cast<const __nv_bfloat16*>(users),
+      static_cast<const __nv_bfloat16*>(items_t),
+      static_cast<const int8_t*>(excl), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), static_cast<float*>(out_g), n_users, d, i_pad,
+      parts, (cudaStream_t)stream);
 }
 
 // Fold `parts` part outputs of coldrec_fused_sweep into cand_v, cand_i and

@@ -1,10 +1,25 @@
 """Model registry (the port's counterpart of ``coldrec_tpu/models/__init__``;
-reference: model/__init__.py AVAILABLE_MODELS). MF is the one model ported;
-the others raise ``ValueError`` naming the ROADMAP item that brings them."""
+reference: model/__init__.py AVAILABLE_MODELS). The ported models map to
+their trainers; the others raise ``ValueError`` naming the ROADMAP item
+that brings them."""
 from ..config.model_params import require_ported
+from .aldi import ALDITrainer
+from .deepmusic import DeepMusicTrainer
+from .dropoutnet import DropoutNetTrainer
+from .duif import DUIFTrainer
+from .gar import GARTrainer
+from .heater import HeaterTrainer
 from .mf import MF, MFTrainer
 
-TRAINERS = {"MF": MFTrainer}
+TRAINERS = {
+    "MF": MFTrainer,
+    "DropoutNet": DropoutNetTrainer,
+    "GAR": GARTrainer,
+    "ALDI": ALDITrainer,
+    "DeepMusic": DeepMusicTrainer,
+    "DUIF": DUIFTrainer,
+    "Heater": HeaterTrainer,
+}
 
 __all__ = ["MF", "MFTrainer", "TRAINERS", "model_factory"]
 

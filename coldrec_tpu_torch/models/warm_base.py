@@ -4,9 +4,18 @@ single-device path of ``coldrec_tpu/models/warm_base.py``).
 The reference's warm backbones share one loop: epochs over
 ``next_batch_pairwise``, BPR(+extras) loss, Adam, per-epoch
 ``fast_evaluation('all')``, an early-stop break, the best tables to the
-embedding bus. Subclasses set ``self.model``, an ``nn.Module`` with
-``forward_tables()``, and implement ``loss(batch)``; everything else lives
-here once.
+embedding bus. The cold-start models (``cold_base.py``) share it too.
+Subclasses set ``self.model``, an ``nn.Module``, and implement
+``loss(batch)`` and, unless the module's ``forward_tables()`` gives them,
+``forward_tables()``; everything else lives here once.
+
+The eval tables are recomputed after every epoch (``refresh_tables``: the
+module in eval mode under ``no_grad``, then back in training mode) as new
+tensors, never aliases of the parameters that Adam updates in place. A
+model with BatchNorm keeps its running statistics as module buffers, which
+every training-mode call updates (twice a step where the loss calls a
+tower twice). Per-step randomness comes from ``self.generator``, a
+``torch.Generator`` on the trainer's device seeded from ``--seed``.
 
 Adam is ``torch.optim.Adam`` on dense gradients, the same update as the
 JAX package's optax Adam (``tests/test_optimizers.py`` pins the two). Each
@@ -34,13 +43,17 @@ from ..runtime.trainer import BaseColdStartTrainer
 
 
 class WarmBackboneTrainer(BaseColdStartTrainer):
-    """Subclass contract: set ``self.model`` (an ``nn.Module`` whose
-    ``forward_tables()`` gives the (user, item) eval tables), implement
-    ``loss(batch) -> scalar tensor``, then call ``setup_optimizer()``."""
+    """Subclass contract: set ``self.model`` (an ``nn.Module``), implement
+    ``loss(batch) -> scalar tensor`` and, where the module has none,
+    ``forward_tables()``, then call ``setup_optimizer()``."""
 
     model: torch.nn.Module
 
-    def setup_optimizer(self):
+    def setup_optimizer(self, param_groups=None):
+        """Adam over ``param_groups`` (torch's parameter groups, each with
+        its own ``weight_decay``: the gradient plus decay times the weight,
+        as optax's ``add_decayed_weights`` before Adam) or over every
+        parameter of the model."""
         if str(getattr(self.args, "mesh", "") or ""):
             raise NotImplementedError(
                 "--mesh: the port trains on one device; mesh training comes "
@@ -49,19 +62,33 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             raise NotImplementedError(
                 "--fused_steps > 1 is not in the port (ROADMAP.md Queue 1, "
                 "item 8)")
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.lr)
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters() if param_groups is None else param_groups,
+            lr=self.lr)
         self.refresh_tables()
         self.save()
         self.epoch_stats: List[Dict] = []
 
     def refresh_tables(self):
-        """Point the eval tables at the current parameters (no copy)."""
-        ue, ie = self.model.forward_tables()
-        self.user_emb, self.item_emb = ue.detach(), ie.detach()
+        """Recompute the eval tables from the current weights: new tensors,
+        with the module in eval mode (running BatchNorm statistics)."""
+        self.model.eval()
+        with torch.no_grad():
+            ue, ie = self.forward_tables()
+            self.user_emb, self.item_emb = ue.clone(), ie.clone()
+        self.model.train()
 
     # ------------------------------------------------------------- contract
+    def forward_tables(self):
+        """The (user, item) eval tables of the current weights."""
+        return self.model.forward_tables()
+
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
+
+    def extra_saved_tensors(self) -> Dict[str, torch.Tensor]:
+        """Tensors written to the bus beside the best tables."""
+        return {}
 
     def batches(self):
         """Per-epoch batch iterator; override for model-specific samplers."""
@@ -76,9 +103,11 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         return {k: torch.from_numpy(v).pin_memory().to(
             self.device, non_blocking=True) for k, v in batch.items()}
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One Adam step on a device batch; returns the loss (no sync)."""
-        loss = self.loss(batch)
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   **kw) -> torch.Tensor:
+        """One Adam step on a device batch; returns the loss (no sync).
+        ``kw`` goes to ``loss`` (e.g. DropoutNet's injected masks)."""
+        loss = self.loss(batch, **kw)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -145,6 +174,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             "torch_rng_state": torch.get_rng_state(),
             "cuda_rng_state": (torch.cuda.get_rng_state(self.device)
                                if cuda else None),
+            "generator_state": self.generator.get_state(),
             "best_user_emb": self.best_user_emb,
             "best_item_emb": self.best_item_emb,
             "best_performance": self.best_performance,
@@ -165,6 +195,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         torch.set_rng_state(state["torch_rng_state"])
         if self.device.type == "cuda" and state["cuda_rng_state"] is not None:
             torch.cuda.set_rng_state(state["cuda_rng_state"], self.device)
+        self.generator.set_state(state["generator_state"])
         self.best_user_emb = state["best_user_emb"].to(self.device)
         self.best_item_emb = state["best_item_emb"].to(self.device)
         self.best_performance = state["best_performance"]
@@ -181,6 +212,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         epoch = start_epoch - 1
         for epoch in range(start_epoch, self.max_epoch):
             stats = self._train_epoch(epoch)
+            self.refresh_tables()
             stop = False
             if epoch % self.eval_every == 0:
                 t = time.perf_counter()
@@ -202,14 +234,15 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
                 self.dataset_name,
                 self.args.cold_object,
                 self.model_name,
-                {"user_emb": self.user_emb, "item_emb": self.item_emb},
+                {"user_emb": self.user_emb, "item_emb": self.item_emb,
+                 **self.extra_saved_tensors()},
                 fmt=getattr(self.args, "save_emb_format", "npz"),
             )
 
     def save(self):
-        # the eval tables alias the parameters, which Adam updates in place
-        self.best_user_emb = self.user_emb.clone()
-        self.best_item_emb = self.item_emb.clone()
+        # the eval tables are fresh tensors (refresh_tables), never updated
+        self.best_user_emb = self.user_emb
+        self.best_item_emb = self.item_emb
 
     def batch_scores(self, user_ids: np.ndarray) -> torch.Tensor:
         idx = torch.as_tensor(np.asarray(user_ids), device=self.device).long()

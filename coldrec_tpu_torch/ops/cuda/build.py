@@ -120,6 +120,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     signatures = {
         # pointers, then ints, then the stream
         "coldrec_fused_sweep": [vp] * 6 + [ci] * 4 + [vp],
+        "coldrec_fused_sweep_bf16": [vp] * 6 + [ci] * 4 + [vp],
         "coldrec_merge_parts": [vp] * 6 + [ci] * 2 + [vp],
         "coldrec_dot_sweep": [vp] * 4 + [ci] * 5 + [vp],
         "coldrec_stream_sweep": [vp] * 6 + [ci] * 4 + [vp],
@@ -129,7 +130,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "coldrec_skip_max_clusters": [ci] * 3,
     }
     # the item ranges a sweep is split into: (n_users, d, i_pad) -> parts
-    for name in ("coldrec_fused_sweep_parts", "coldrec_dot_sweep_parts"):
+    for name in ("coldrec_fused_sweep_parts", "coldrec_fused_sweep_bf16_parts",
+                 "coldrec_dot_sweep_parts"):
         signatures[name] = [ci] * 3
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

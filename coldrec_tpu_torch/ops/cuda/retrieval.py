@@ -35,11 +35,20 @@ kernel merges the parts' slots (``merge_parts``): per (user, class) the
 sorted top-SLOTS of the union, and as ghost the max of the parts' ghosts
 and of the values the merge drops.
 
+bf16 mode (the JAX package's ``bf16=True``, ``--eval_backend
+pallas_bf16``): ``fused_sweep`` takes bfloat16 tables and launches the
+kernel's bf16 instance, which widens the operands to fp32 and accumulates
+in fp32; ``retrieval_topk(bf16=True)`` rounds the tables to bf16 on the
+device and scores its exact fallback on the same rounded operands, so the
+lists are the exact top-k of the bf16-rounded scores.
+
 ``fused_sweep`` and ``merge_parts`` launch their kernels for CUDA tensors
-and count each launch in ``<wrapper>.launches`` (``fused_sweep`` once per
-sweep); for CPU tensors they compute the plain versions
-``fused_sweep_reference`` and ``merge_parts_reference``. They never fall
-back from a CUDA tensor.
+and count each launch (``fused_sweep.launches`` for fp32 tables and
+``fused_sweep.launches_bf16`` for bf16 ones, once per sweep;
+``merge_parts.launches``); for CPU tensors they compute the plain versions
+``fused_sweep_reference`` (on bf16 tables: widened to fp32, which is
+exact) and ``merge_parts_reference``. They never fall back from a CUDA
+tensor.
 """
 from __future__ import annotations
 
@@ -62,12 +71,13 @@ REFERENCE_CHUNK = 256  # users per score plane in fused_sweep_reference
 FALLBACK_CHUNK = 4096  # rows per exact-fallback chunk (bounds the score plane)
 
 
-def _check_sweep_inputs(users, items_t, excl, name="fused_sweep"):
-    if users.dtype == torch.bfloat16 or items_t.dtype == torch.bfloat16:
-        raise NotImplementedError("bf16 retrieval is not in the port yet")
-    if users.dtype != torch.float32 or items_t.dtype != torch.float32:
+def _check_sweep_inputs(users, items_t, excl, name="fused_sweep",
+                        dtypes=(torch.float32,)):
+    if users.dtype not in dtypes or items_t.dtype != users.dtype:
+        kinds = " or ".join(str(t).split(".")[-1] for t in dtypes)
         raise TypeError(
-            f"{name} takes float32 tables, got {users.dtype}/{items_t.dtype}"
+            f"{name} takes {kinds} tables of one type, got "
+            f"{users.dtype}/{items_t.dtype}"
         )
     if excl.dtype != torch.int8:
         raise TypeError(f"excl must be int8, got {excl.dtype}")
@@ -98,31 +108,39 @@ def empty_candidates(b: int, device):
 
 
 def fused_sweep(
-    users: torch.Tensor,  # (B, d) f32
-    items_t: torch.Tensor,  # (d, I_pad) f32, pre-transposed item table
+    users: torch.Tensor,  # (B, d) f32 or bf16
+    items_t: torch.Tensor,  # (d, I_pad), pre-transposed item table, as users
     excl: torch.Tensor,  # (I_pad,) int8, nonzero = candidate-excluded
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(cand_v (B, 1024) f32, cand_i (B, 1024) i32, ghost (B, 128) f32)."""
-    _check_sweep_inputs(users, items_t, excl)
+    _check_sweep_inputs(users, items_t, excl,
+                        dtypes=(torch.float32, torch.bfloat16))
     if users.device.type == "cpu":
-        return fused_sweep_reference(users, items_t, excl)
+        return fused_sweep_reference(users.float(), items_t.float(), excl)
     if users.device.type != "cuda":
         raise ValueError(f"no retrieval kernel for device {users.device}")
+    bf16 = users.dtype == torch.bfloat16
+    if bf16 and items_t.data_ptr() % 16:
+        raise ValueError("the bf16 sweep takes a 16-byte aligned items_t")
+    name = "coldrec_fused_sweep_bf16" if bf16 else "coldrec_fused_sweep"
     b, d = users.shape
     i_pad = items_t.shape[1]
-    parts = sweep_parts("coldrec_fused_sweep_parts", users.device, b, d,
-                        i_pad)
+    parts = sweep_parts(f"{name}_parts", users.device, b, d, i_pad)
     # one part writes the result; more write (parts, B, ...) scratch
     out = tuple(t.view(parts, b, t.shape[1]) if parts > 1 else t
                 for t in empty_candidates(parts * b, users.device))
-    launch("coldrec_fused_sweep", users.device,
+    launch(name, users.device,
            users.data_ptr(), items_t.data_ptr(), excl.data_ptr(),
            *(t.data_ptr() for t in out), b, d, i_pad, parts)
-    fused_sweep.launches += 1
+    if bf16:
+        fused_sweep.launches_bf16 += 1
+    else:
+        fused_sweep.launches += 1
     return out if parts == 1 else merge_parts(*out)
 
 
 fused_sweep.launches = 0
+fused_sweep.launches_bf16 = 0
 
 
 def fused_sweep_reference(
@@ -310,19 +328,29 @@ def apply_exact_fallback(vals, ids, sus, exact_chunk_fn, chunk=FALLBACK_CHUNK):
     ids[rows] = np.concatenate(fis)[: rows.size]
 
 
-def _exact_rows(users_rows, items, rated_rows, excluded, k: int):
-    """Exact masked top-k for fallback rows (fp32 products, TF32 off)."""
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to bfloat16 (to nearest even) and widened back."""
+    return x.to(torch.bfloat16).float()
+
+
+def _exact_rows(users_rows, items, rated_rows, excluded, k: int,
+                bf16: bool = False):
+    """Exact masked top-k for fallback rows (fp32 products, TF32 off);
+    with ``bf16`` on operands rounded to bf16 first, as the kernel's."""
+    if bf16:
+        users_rows, items = bf16_round(users_rows), bf16_round(items)
     v, i = masked_topk(exact_scores(users_rows, items), rated_rows, excluded, k)
     return v.cpu().numpy(), i.cpu().numpy()
 
 
 def pad_items(item_emb: torch.Tensor, excluded: torch.Tensor):
-    """The kernel's item operands: the (d, I_pad) transposed table, padded
-    to a multiple of 128 items with zeros, and the (I_pad,) int8 exclusion
-    row, whose pad entries are set so a pad item can never be a result."""
+    """The kernel's item operands: the (d, I_pad) transposed table (of
+    ``item_emb``'s type), padded to a multiple of 128 items with zeros, and
+    the (I_pad,) int8 exclusion row, whose pad entries are set so a pad
+    item can never be a result."""
     n_items, d = item_emb.shape
     i_pad = _round_up(n_items, LANES)
-    items_t = torch.zeros((d, i_pad), dtype=torch.float32,
+    items_t = torch.zeros((d, i_pad), dtype=item_emb.dtype,
                           device=item_emb.device)
     items_t[:, :n_items] = item_emb.T
     excl_row = torch.ones(i_pad, dtype=torch.int8, device=item_emb.device)
@@ -337,10 +365,13 @@ def retrieval_topk(
     excluded,  # (I,) bool
     k: int,
     device="cuda",
+    bf16: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Full masked top-k sweep; returns numpy (vals (U, k), ids (U, k)),
     exact and in (-value, id) order. Takes numpy arrays or tensors; tensors
-    already on ``device`` are used in place."""
+    already on ``device`` are used in place. ``bf16=True``: the exact top-k
+    of the scores of the bf16-rounded tables (fp32 sums), through the
+    kernel's bf16 instance."""
     dev = resolve_device(device)
     ue = torch.as_tensor(user_emb, dtype=torch.float32, device=dev)
     ie = torch.as_tensor(item_emb, dtype=torch.float32, device=dev)
@@ -354,11 +385,13 @@ def retrieval_topk(
         )
     if n_users == 0:
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-    items_t, excl_row = pad_items(ie, excl)
+    kind = torch.bfloat16 if bf16 else torch.float32
+    uk = ue.to(kind)
+    items_t, excl_row = pad_items(ie.to(kind), excl)
     vals_l, ids_l, sus_l = [], [], []
     for s in range(0, n_users, USER_CHUNK):
         e = min(n_users, s + USER_CHUNK)
-        cv, ci, gh = fused_sweep(ue[s:e].contiguous(), items_t, excl_row)
+        cv, ci, gh = fused_sweep(uk[s:e].contiguous(), items_t, excl_row)
         v, i, sus = _resolve(cv, ci, gh, rated[s:e], k)
         vals_l.append(v.cpu().numpy())
         ids_l.append(i.cpu().numpy())
@@ -369,7 +402,7 @@ def retrieval_topk(
 
     def exact_chunk(rows_pad):
         rows_d = torch.as_tensor(rows_pad, device=dev)
-        return _exact_rows(ue[rows_d], ie, rated[rows_d], excl, k)
+        return _exact_rows(ue[rows_d], ie, rated[rows_d], excl, k, bf16)
 
     apply_exact_fallback(vals, ids, np.concatenate(sus_l), exact_chunk)
     return vals, ids

@@ -1,5 +1,5 @@
-"""BPR and L2 losses on tensors, weighted for padding (the port's copy of
-``bpr_loss``, ``l2_reg_loss`` and ``_wmean`` from
+"""BPR, L2 and MSE losses on tensors, weighted for padding (the port's copy
+of ``bpr_loss``, ``l2_reg_loss``, ``mse_loss`` and ``_wmean`` from
 ``coldrec_tpu/ops/losses.py``; reference ColdRec util/utils.py:25-48).
 
 Every batch has a fixed row count; the last batch of an epoch is padded and
@@ -50,3 +50,16 @@ def l2_reg_loss(
             denom = emb.shape[0]
         total = total + (emb * emb).sum().sqrt() / denom
     return total * reg
+
+
+def mse_loss(
+    pred: torch.Tensor, target: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Elementwise-mean MSE (utils.py:32-34); with ``weight`` the mean over
+    the real rows' elements."""
+    sq = (pred - target) ** 2
+    if weight is None:
+        return sq.mean()
+    w = weight.reshape((-1,) + (1,) * (sq.dim() - 1))
+    return (sq * w).sum() / (w.sum() * sq.shape[-1]).clamp_min(1.0)

@@ -216,9 +216,10 @@ class EvalSweep:
         data_type: str,
         user_emb: torch.Tensor,
         item_emb: torch.Tensor,
+        bf16: bool = False,
     ) -> np.ndarray:
         """Same sweep through the retrieval kernel (on the CPU: its plain
-        version)."""
+        version); ``bf16`` takes the kernel's bf16 mode."""
         from ..ops.cuda.retrieval import retrieval_topk
 
         st = self._prepare(split_name, data_type)
@@ -229,6 +230,7 @@ class EvalSweep:
         ]
         ue = user_emb[torch.as_tensor(users, device=user_emb.device).long()]
         _, ids = retrieval_topk(
-            ue, item_emb, rated, st["bias"], self.max_n, device=self.device
+            ue, item_emb, rated, st["bias"], self.max_n, device=self.device,
+            bf16=bf16,
         )
         return ids

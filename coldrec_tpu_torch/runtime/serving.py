@@ -97,11 +97,14 @@ class RetrievalServer:
         k: int,
         exclude_rated: bool = True,
         raw_ids: bool = False,
+        bf16: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k (scores, item_ids) for a batch of users.
 
         ``raw_ids=True`` (requires ``dataset``) maps raw user ids in and raw
-        item ids out (the pad id maps to -1)."""
+        item ids out (the pad id maps to -1). ``bf16=True``: the kernel's
+        bf16 mode, the exact top-k of the bf16-rounded scores (heavy-rated
+        users still take the exact fp32 sweep, as in the JAX package)."""
         uids = np.asarray(user_ids)
         if raw_ids:
             if self.data is None:
@@ -113,7 +116,8 @@ class RetrievalServer:
         ue = self.user_emb[torch.as_tensor(uids, device=self.device)]
         if k_eff + rated.shape[1] <= CANDIDATES:
             vals, ids = retrieval_topk(
-                ue, self.item_emb, rated, self.bias, k_eff, device=self.device
+                ue, self.item_emb, rated, self.bias, k_eff,
+                device=self.device, bf16=bf16,
             )
         else:  # heavy-rated users: exact sweep
             v, i = masked_topk(

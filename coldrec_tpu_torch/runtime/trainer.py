@@ -13,7 +13,9 @@ The port's copy of ``coldrec_tpu/runtime/trainer.py`` (``Config``,
 Ranked lists come from :func:`rec_lists`: factored tables go through the
 hand-written retrieval kernel on the card (its plain version on the CPU),
 or through the plain matmul + ``masked_topk`` sweep. ``--eval_backend``
-picks one: ``auto`` and ``pallas`` the kernel, ``xla`` the plain sweep.
+picks one: ``auto`` and ``pallas`` the kernel, ``pallas_bf16`` the kernel's
+bf16 mode (the exact top-k of the bf16-rounded scores, opt-in as in the
+JAX package), ``xla`` the plain sweep.
 """
 from __future__ import annotations
 
@@ -41,20 +43,18 @@ SETTING_SPLITS = {
 }
 
 METRIC_NAMES = ["Hit Ratio", "Precision", "Recall", "NDCG"]
-BACKENDS = ("kernel", "plain")
+BACKENDS = ("kernel", "kernel_bf16", "plain")
 # --eval_backend of the JAX CLI -> the port's sweep
-EVAL_BACKENDS = {"auto": "kernel", "pallas": "kernel", "xla": "plain"}
+EVAL_BACKENDS = {"auto": "kernel", "pallas": "kernel",
+                 "pallas_bf16": "kernel_bf16", "xla": "plain"}
 
 
 def eval_backend(flag: str) -> str:
-    """The port's sweep (``"kernel"`` or ``"plain"``) for ``--eval_backend``."""
-    if flag == "pallas_bf16":
-        raise NotImplementedError(
-            "--eval_backend pallas_bf16: the bf16 mode of the retrieval "
-            "kernel is not in the port yet (ROADMAP.md Queue 2, item 2)")
+    """The port's sweep (``"kernel"``, ``"kernel_bf16"`` or ``"plain"``)
+    for ``--eval_backend``."""
     if flag not in EVAL_BACKENDS:
         raise ValueError(f"--eval_backend {flag!r} not in "
-                         f"{sorted(EVAL_BACKENDS) + ['pallas_bf16']}")
+                         f"{sorted(EVAL_BACKENDS)}")
     return EVAL_BACKENDS[flag]
 
 
@@ -68,15 +68,23 @@ def rec_lists(
 ) -> np.ndarray:
     """(n_users, max_N) ranked mapped item ids for one (phase, setting).
 
-    ``backend="kernel"`` sends factored tables through the retrieval kernel;
-    a split with a user rated too heavily for the kernel's candidate stream
-    goes to the exact plain sweep, as in the JAX package. ``"plain"``
-    always takes the plain sweep (matmul + ``masked_topk``)."""
+    ``backend="kernel"`` sends factored tables through the retrieval kernel
+    (``"kernel_bf16"``: its bf16 mode); a split with a user rated too
+    heavily for the kernel's candidate stream goes to the exact fp32 plain
+    sweep, as in the JAX package. ``"plain"`` always takes the plain sweep
+    (matmul + ``masked_topk``). The route taken is sent to the event log
+    (``sweep_route``)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
     split = SETTING_SPLITS[(data_type, phase)]
-    if backend == "kernel" and sweep.kernel_supported(split, data_type):
-        return sweep.run_kernel(split, data_type, user_emb, item_emb)
+    route = "plain"
+    if backend != "plain" and sweep.kernel_supported(split, data_type):
+        route = backend
+    event_log().emit("sweep_route", split=split, backend=backend,
+                     route=route)
+    if route != "plain":
+        return sweep.run_kernel(split, data_type, user_emb, item_emb,
+                                bf16=route == "kernel_bf16")
 
     def score_fn(users: np.ndarray) -> torch.Tensor:
         idx = torch.as_tensor(users, device=user_emb.device).long()
@@ -179,6 +187,9 @@ class BaseColdStartTrainer(ABC):
         # host RNG for the samplers, consumed as the JAX package does
         self.seed = int(getattr(self.args, "seed", 2024))
         self.host_rng = np.random.default_rng(self.seed)
+        # the device's draws of a step (e.g. DropoutNet's dropped rows)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
         self.events = event_log()
         self.events.emit(
             "run_start",

@@ -37,8 +37,12 @@ _global_log: Optional[EventLog] = None
 
 def event_log() -> EventLog:
     """The process's event log, opened on first use from
-    ``$COLDREC_EVENT_LOG``."""
+    ``$COLDREC_EVENT_LOG``, and opened anew (the old one closed) when that
+    variable has changed since."""
     global _global_log
-    if _global_log is None:
-        _global_log = EventLog()
+    path = os.environ.get("COLDREC_EVENT_LOG")
+    if _global_log is None or _global_log.path != path:
+        if _global_log is not None:
+            _global_log.close()
+        _global_log = EventLog(path)
     return _global_log

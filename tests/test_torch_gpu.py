@@ -214,8 +214,10 @@ def test_wrapper_refuses_bad_card_input(cuda):
     users = torch.zeros((4, 8), device=cuda)
     items_t = torch.zeros((8, 256), device=cuda)
     excl = torch.zeros(256, dtype=torch.int8, device=cuda)
-    with pytest.raises(NotImplementedError):
-        tret.fused_sweep(users.bfloat16(), items_t.bfloat16(), excl)
+    with pytest.raises(TypeError, match="one type"):
+        tret.fused_sweep(users.bfloat16(), items_t, excl)
+    with pytest.raises(TypeError):
+        tret.fused_sweep(users.double(), items_t.double(), excl)
     with pytest.raises(ValueError):
         tret.fused_sweep(users, items_t.cpu(), excl)
 
@@ -530,3 +532,78 @@ def test_host_sampler_builds_on_the_card_machine(cuda):
     np.testing.assert_array_equal(negs, native.sample_negatives_native(
         data.train_indptr, data.train_items_sorted, users, data.n_seen_items,
         7))
+
+
+# ---------------------------------------------------------------- bf16 mode
+def _bf16(*tensors):
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+@pytest.mark.parametrize("n_users,d", SPLIT_SHAPES)
+def test_bf16_kernel_integer_tables_exact(cuda, n_users, d):
+    """Integer tables in [-3, 3] are exact in bf16: the bf16 instance (any
+    part count, resident or staged users) equals its plain version, the
+    fp32 sweep of the widened tables, bit for bit."""
+    users, items_t, excl_row = _int_sweep_inputs(cuda, n_users, 3000, d,
+                                                 seed=n_users + d)
+    ub, ib = _bf16(users, items_t)
+    before = (tret.fused_sweep.launches, tret.fused_sweep.launches_bf16)
+    got = tret.fused_sweep(ub, ib, excl_row)
+    torch.cuda.synchronize(cuda)
+    assert (tret.fused_sweep.launches,
+            tret.fused_sweep.launches_bf16) == (before[0], before[1] + 1)
+    for g, r in zip(got, tret.fused_sweep_reference(users, items_t,
+                                                    excl_row)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("n_users", [70, 512])
+def test_bf16_kernel_nan_items_match_plain(cuda, n_users):
+    users, items_t, excl_row, nan_class = _int_sweep_nan(
+        cuda, n_users, 5000, 16, seed=9, nan_items=200)
+    got = tret.fused_sweep(*_bf16(users, items_t), excl_row)
+    for g, r in zip(got, tret.fused_sweep_reference(users, items_t,
+                                                    excl_row)):
+        assert _same(g, r)
+    assert torch.equal(got[2].isnan(), nan_class.expand_as(got[2]))
+
+
+def test_bf16_kernel_matches_plain_on_normal_tables(cuda):
+    """N(0,1) tables: the products are exact, only the order of the fp32
+    sums differs from the plain version (cuBLAS), so the values agree
+    within TOL, and ``retrieval_topk(bf16=True)`` lists equal the CPU's
+    plain bf16 lists but at near-ties."""
+    ue, ie, excluded, rated = _tables(cuda, 2 * tret.USER_CHUNK + 5, 4000,
+                                      64, seed=5)
+    users = torch.as_tensor(ue, device=cuda)
+    items_t, excl_row = tret.pad_items(torch.as_tensor(ie, device=cuda),
+                                       torch.as_tensor(excluded, device=cuda))
+    cv, ci, gh = tret.fused_sweep(*_bf16(users, items_t), excl_row)
+    rv, ri, rg = tret.fused_sweep_reference(
+        tret.bf16_round(users), tret.bf16_round(items_t), excl_row)
+    torch.testing.assert_close(cv, rv, rtol=0, atol=TOL)
+    torch.testing.assert_close(gh, rg, rtol=0, atol=TOL)
+    before = tret.fused_sweep.launches_bf16
+    gv, gi = tret.retrieval_topk(ue, ie, rated, excluded, 20, device=cuda,
+                                 bf16=True)
+    assert tret.fused_sweep.launches_bf16 == before + 3
+    cv2, ci2 = tret.retrieval_topk(ue, ie, rated, excluded, 20,
+                                   device="cpu", bf16=True)
+    np.testing.assert_allclose(gv, cv2, rtol=0, atol=TOL)
+    ub = tret.bf16_round(torch.as_tensor(ue)).numpy()
+    ib = tret.bf16_round(torch.as_tensor(ie)).numpy()
+    for r in np.flatnonzero((gi != ci2).any(axis=1)):
+        sa, sb = ib[gi[r]] @ ub[r], ib[ci2[r]] @ ub[r]
+        np.testing.assert_allclose(sa, sb, atol=1e-5 * np.abs(sb).max())
+
+
+def test_bf16_kernel_refuses_misaligned_items(cuda):
+    users, items_t, excl_row = _int_sweep_inputs(cuda, 8, 300, 16, seed=1)
+    ub, ib = _bf16(users, items_t)
+    flat = torch.zeros(ib.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view_as(ib)
+    odd.copy_(ib)
+    with pytest.raises(ValueError, match="16-byte"):
+        tret.fused_sweep(ub, odd, excl_row)
+    with pytest.raises(TypeError, match="one type"):
+        tret.fused_sweep(ub, items_t, excl_row)

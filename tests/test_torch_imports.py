@@ -76,9 +76,11 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
         "assert r['max_abs_err'] == 0.0 and r['rows'] == 48, r\n"
         "r = cs.kernel_vs_plain('cpu', 16, 300, d=8, k=10, r=4)\n"
         "r = cs.kernel_ml('cpu', 40, 1000)\n"
-        "assert r == {'max_abs_err': 0.0, 'merge_err': 0.0}, r\n"
+        "assert r == {'max_abs_err': 0.0, 'merge_err': 0.0,\n"
+        "             'bf16_err': 0.0}, r\n"
         "r = cs.kernel_int('cpu', n_items=3000, sizes=(40, 16))\n"
-        "assert r == {'fused_sweep': 0.0, 'merge_parts': 0.0}, r\n"
+        "assert r == {'fused_sweep': 0.0, 'merge_parts': 0.0,\n"
+        "             'fused_sweep_bf16': 0.0}, r\n"
         "n = cs.slice_run('cpu', 300, 2000, 8000, d=16, n_requests=2,\n"
         "                 request_size=32)\n"
         "assert n == {'fused_sweep': 0, 'merge_parts': 0}, n\n"
@@ -93,6 +95,8 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
         "t = cs.time_variants('cpu', 32, 1024, d=8, blocks=(128, 256),\n"
         "                     tiles=(8, 16), reps=1)\n"
         "assert all(r['bound_ms'] > 0 and r['ms'] > 0 for r in t.values())\n"
+        "t = cs.time_sweep_bf16('cpu', 32, 2000, d=8, reps=1)\n"
+        "assert t['bound_by'] == 'bytes' and t['fp32_fma_bound_ms'] > 0, t\n"
         "print('REHEARSAL OK')\n"
     )
     proc = _run_blocked(code, tmp_path)
@@ -104,6 +108,8 @@ def test_chip_smoke_phases_rehearse_on_cpu_without_jax(tmp_path):
     assert "falling table tile_u=16 floor=rv[0]" in proc.stdout
     assert "NaN table P=8 block_i=384" in proc.stdout
     assert "NaN table tile_u=16 floor=rv[0]" in proc.stdout
+    assert "kernel bf16 40x1000 d=64" in proc.stdout
+    assert "fused_sweep_bf16 bit-equal to its plain version" in proc.stdout
     blocked = _run_blocked("import jax\n", tmp_path)
     assert blocked.returncode != 0  # the block really holds
 
@@ -201,7 +207,11 @@ def test_training_modules_are_guarded():
     for name in ("main.py", "native.py", "ops/losses.py", "data/sampler.py",
                  "models/warm_base.py", "runtime/trainer.py",
                  "config/base.py", "utils/seeding.py", "utils/logging.py",
-                 "tools/profile_train.py"):
+                 "tools/profile_train.py", "models/common.py",
+                 "models/cold_base.py", "models/dropoutnet.py",
+                 "models/gar.py", "models/aldi.py", "models/deepmusic.py",
+                 "models/duif.py", "models/heater.py", "data/synthetic.py",
+                 "config/model_params.py"):
         assert f"coldrec_tpu_torch/{name}" in files, name
 
 
@@ -266,9 +276,55 @@ def test_cli_and_trainer_default_to_the_card(tmp_path):
     args = make_args(_tiny_split_dir(tmp_path))
     assert args.device == "cuda" and default_args().device == "cuda"
     data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
+    from coldrec_tpu_torch.models import model_factory
+
     for call in (lambda: tmain.run(args),
                  lambda: MFTrainer(Config(default_args(), data)),
+                 lambda: model_factory(Config(default_args(model="GAR"),
+                                              data)),
                  lambda: profile_train.main(["--users", "30"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert not (tmp_path / "result.txt").exists()
+
+
+def test_chip_smoke_cold_phases_rehearse_on_cpu_without_jax(tmp_path):
+    """Phases cold and cold-signal at a tiny size on the CPU, with jax and
+    coldrec_tpu blocked: phase train leaves its split (item content) and
+    MF bus; each cold model runs through the CLI on them, its lists held
+    to the plain path, DropoutNet once more under pallas_bf16, then the
+    two BatchNorm models' steps device against CPU; cold-signal writes a
+    latent split and runs MF and DropoutNet through the CLI, each split on
+    the JAX package's route."""
+    code = (
+        "import tempfile\n"
+        "import chip_smoke as cs\n"
+        "for m in ('jax', 'coldrec_tpu'):\n"
+        "    assert sys.modules[m] is None\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cs.train_run('cpu', 300, 2000, 8000, d=16, bs=256, root=root,\n"
+        "                 content_dim=12)\n"
+        "    bf16, per_model = cs.cold_run('cpu', root, d=16, bs=256,\n"
+        "                                  steps=3)\n"
+        "assert set(per_model) == {m for m, _, _ in cs.COLD_RUNS}\n"
+        "assert bf16['fused_sweep_bf16'] == 0, bf16\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cold = cs.signal_run('cpu', root, 500, 300, 20000,\n"
+        "                         content_dim=24, d=16, epochs=2, bs=256)\n"
+        "assert set(cold) == {'MF', 'DropoutNet', 'chance'}, cold\n"
+        "print('COLD OK')\n"
+    )
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "COLD OK" in proc.stdout
+    for line in ("item content 12 columns", "ALDI: 2 epoch(s)",
+                 "at d=32", "Heater: 1 epoch(s)",
+                 "--eval_backend pallas_bf16: 1 epoch",
+                 "'overall_val': ['kernel_bf16']",
+                 "id-equal to the plain bf16 path all",
+                 "DropoutNet: 3 steps cpu vs cpu",
+                 "ALDI: 3 steps cpu vs cpu", "latent split written",
+                 "users above 1004", "MF: 2 epochs", "DropoutNet: 2 epochs",
+                 "chance (N(0,1) tables)", "'cold_test': ['kernel']",
+                 "cold NDCG@20, highest first"):
+        assert line in proc.stdout, line

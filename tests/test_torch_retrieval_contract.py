@@ -86,8 +86,19 @@ def test_wrapper_checks_and_cpu_dispatch():
     assert tret.fused_sweep.launches == before  # CPU: the plain version
     assert cv.shape == (4, tret.CANDIDATES) and ci.dtype == torch.int32
     assert gh.shape == (4, tret.LANES)
-    with pytest.raises(NotImplementedError):
-        tret.fused_sweep(users.bfloat16(), items_t.bfloat16(), excl)
+    # bf16 tables: the plain version on the widened tables, no launch
+    rng = np.random.default_rng(0)
+    ub = torch.as_tensor(rng.standard_normal((4, 8), dtype=np.float32))
+    ib = torch.as_tensor(rng.standard_normal((8, 256), dtype=np.float32))
+    before = tret.fused_sweep.launches_bf16
+    got = tret.fused_sweep(ub.bfloat16(), ib.bfloat16(), excl)
+    assert tret.fused_sweep.launches_bf16 == before
+    ref = tret.fused_sweep_reference(tret.bf16_round(ub),
+                                     tret.bf16_round(ib), excl)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    with pytest.raises(TypeError, match="one type"):
+        tret.fused_sweep(users.bfloat16(), items_t, excl)
     with pytest.raises(TypeError):
         tret.fused_sweep(users.double(), items_t.double(), excl)
     with pytest.raises(ValueError):

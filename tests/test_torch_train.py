@@ -249,8 +249,7 @@ def test_plain_and_kernel_backends_agree(datasets):
 @pytest.mark.parametrize("overrides,error,match", [
     (dict(mesh="2x1"), NotImplementedError, "Queue 1, item 7"),
     (dict(fused_steps=4), NotImplementedError, "Queue 1, item 8"),
-    (dict(eval_backend="pallas_bf16"), NotImplementedError,
-     "Queue 2, item 2"),
+    (dict(eval_backend="bf16"), ValueError, "pallas_bf16"),
     (dict(eval_backend="tpu"), ValueError, "eval_backend"),
 ])
 def test_refused_flags(datasets, overrides, error, match):
@@ -260,7 +259,7 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,match", [
-    ("LightGCN", "Queue 1, item 4"), ("DropoutNet", "Queue 1, item 3"),
+    ("LightGCN", "Queue 1, item 4"), ("AGNN", "Queue 1, item 5"),
     ("KNN", "Queue 1, item 5"), ("CLCRec", "Queue 1, item 6"),
     ("NotAModel", "Invalid model name"),
 ])
