@@ -61,6 +61,29 @@ Phases, each printed with its seconds:
               tables); then 20 DropoutNet and 20 ALDI steps on the card
               against the same steps on the CPU (same weights, batches and
               dropped rows);
+  graph       the graph backbones through the CLI on that split (d=64, bs
+              4096, --layers 2): LightGCN 2 epochs, NGCF, SimGCL, XSimGCL
+              and NCL 1 (BASELINE config 2's model and config 5's
+              backbone), each with its launch counts zeroed before and read
+              after (``fused_sweep`` must have launched), its time split,
+              the exact fallback's rows and seconds during the run (SimGCL
+              and XSimGCL give the edgeless cold items all-zero rows, so
+              every cold-setting row is an all-tie), its peak card memory,
+              and its three-way-test lists held to the plain path by the
+              rule of phase 3; first the check that fp32 products run with
+              TF32 off; then NCL past its warm-up on the card (k-means of
+              both tables timed, the e-step, 20 steps with the proto term:
+              finite losses); then one SpMM apply alone (its ELL part
+              summed by ``embedding_bag`` and by gather + ``bmm``, its
+              tail by ``index_add_`` and by ``segment_reduce``,
+              forward + backward, ``torch.sparse.mm`` on the same CSR
+              matrix as the yardstick) beside its byte bound, and its share
+              of a LightGCN step;
+  graph-user  BASELINE config 5 at book-crossing shape: a user-cold split
+              with 2,312 N(0,1) user-content columns, XSimGCL 1 epoch, then
+              Heater on its bus (``--backbone XSimGCL``) 1 epoch, each
+              checked as in phase graph, every split on the JAX package's
+              route;
   cold-signal a latent-factor split at MovieLens-1M shape (6,040 x 3,706 x
               1,000,209, item content 206 columns: a noisy view of the item
               factors); MF, then DropoutNet on its bus, 5 epochs each
@@ -70,6 +93,14 @@ Phases, each printed with its seconds:
               cold-setting NDCG@20 of both and of random tables (chance)
               are logged side by side, not held to an order (a finding,
               PERF.md §6);
+  graph-ml    BASELINE config 2 at that shape: LightGCN 5 epochs through
+              the CLI on the latent split (every split on the JAX package's
+              route: the plain sweep), then 20 LightGCN and 20 SimGCL steps
+              on the card against the same steps on the CPU (same tables
+              and batches; SimGCL's noise drawn on the host and injected
+              into both; SimGCL held step by step from the CPU's state,
+              on the steps in which no element's sign flips: its noise
+              takes sign(e), so its free runs part);
   7. variants the kernel-variant experiments (``coldrec_tpu_torch/tools``):
               first their path, driven through the tools' entry points with
               every launch count zeroed just before and read just after
@@ -110,6 +141,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import io
 import json
 import os
@@ -117,6 +149,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -132,9 +165,14 @@ from coldrec_tpu_torch.data.synthetic import (
     synthetic_interactions,
 )
 from coldrec_tpu_torch.models import TRAINERS
+from coldrec_tpu_torch.models import ncl as ncl_mod
+from coldrec_tpu_torch.models import simgcl as simgcl_mod
+from coldrec_tpu_torch.models.lightgcn import GraphTables
 from coldrec_tpu_torch.models.mf import MF, MFTrainer
+from coldrec_tpu_torch.ops import spmm as spmm_mod
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda import retrieval as ret
+from coldrec_tpu_torch.ops.kmeans import kmeans
 from coldrec_tpu_torch.ops.cuda.retrieval import (
     CANDIDATES, INIT_NEG, LANES, SLOTS, USER_CHUNK, fused_sweep,
     fused_sweep_reference, merge_parts, merge_parts_reference, pad_items,
@@ -216,6 +254,24 @@ COLD_NORM_RTOL = 1e-3
 # items, interactions and the item content dimension.
 ML = (6_040, 3_706, 1_000_209)
 ML_CONTENT = 206
+# Phase graph: the graph backbones through the CLI on phase train's split
+# (item cold): (model, epochs, flags); phase graph-user: book-crossing's
+# 2,312 user-content columns (BASELINE.md:17) under user cold start.
+GRAPH_RUNS = (
+    ("LightGCN", 2, ("--layers", "2")),
+    ("NGCF", 1, ("--layers", "2")),
+    ("SimGCL", 1, ("--layers", "2")),
+    ("XSimGCL", 1, ("--layers", "2")),
+    ("NCL", 1, ("--layers", "2")),
+)
+BX_USER_CONTENT = 2_312
+HBM_BYTES_S = 3.35e12  # the H100 SXM's HBM3 rate
+# fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
+# float64 (TF32 leaves ~1e-3)
+FP32_RTOL = 1e-5
+# the SpMM against torch.sparse.mm: fp32 sums of <= 48,301 terms of
+# normalized weights in another order
+SPMM_RTOL = 1e-5
 # each kernel's launch counter: (wrapper, attribute)
 COUNTERS = {
     "fused_sweep": (fused_sweep, "launches"),
@@ -665,16 +721,19 @@ def step_parity(device, data, d, bs, steps=STEP_CHECK, seed=0):
     return loss_err, worst, over, numel
 
 
-def write_split(root, ds, pairs, seed, content_dim, content=None):
-    """The split directory of ``pairs`` under ``root/ds`` (cold items), and
-    its item content: ``content`` (rows in raw item order) or N(0,1) of
-    ``content_dim`` columns from ``seed``."""
-    res = cold_start_split(pairs, cold_object="item", seed=seed + 42)
-    write_split_dir(res, root, ds, "item")
+def write_split(root, ds, pairs, seed, content_dim, content=None,
+                cold_object="item"):
+    """The split directory of ``pairs`` under ``root/ds`` (cold
+    ``cold_object``), and the cold side's content: ``content`` (rows in raw
+    id order) or N(0,1) of ``content_dim`` columns from ``seed``."""
+    res = cold_start_split(pairs, cold_object=cold_object, seed=seed + 42)
+    write_split_dir(res, root, ds, cold_object)
     if content is None:
+        n = res.item_num if cold_object == "item" else res.user_num
         content = np.random.default_rng(seed + 2).standard_normal(
-            (res.item_num, content_dim), dtype=np.float32)
-    np.save(os.path.join(root, ds, f"{ds}_item_content.npy"), content)
+            (n, content_dim), dtype=np.float32)
+    np.save(os.path.join(root, ds, f"{ds}_{cold_object}_content.npy"),
+            content)
     return res
 
 
@@ -799,17 +858,19 @@ def train_run(device, n_users, n_items, n_inter, d=D, epochs=3, bs=4096,
 
 # ------------------------------------------------------ the cold-start path
 def cli_run(device, root, ds, model, epochs, flags=(), d=D, bs=4096, seed=0,
-            topN=(10, 20), tag=None):
+            topN=(10, 20), tag=None, cold_object="item"):
     """One run of the port's CLI (``coldrec_tpu_torch.main.run``) on the
     split directory ``root/ds`` with the bus under ``root/emb``, the launch
     counts zeroed just before and read just after. Returns (payload,
     launches, events, seconds)."""
     device = torch.device(device)
-    tag = tag or model
+    tag = tag or f"{model}_{cold_object}"
     events = os.path.join(root, f"events_{tag}.jsonl")
+    if os.path.exists(events):  # the log appends: keep this run's alone
+        os.remove(events)
     os.environ["COLDREC_EVENT_LOG"] = events
     args = make_args([
-        "--model", model, "--dataset", ds, "--cold_object", "item",
+        "--model", model, "--dataset", ds, "--cold_object", cold_object,
         "--data_dir", root, "--emb_dir", os.path.join(root, "emb"),
         "--result_file", os.path.join(root, f"result_{tag}.txt"),
         "--epochs", str(epochs), "--bs", str(bs), "--emb_size", str(d),
@@ -852,19 +913,38 @@ def routes(evs) -> dict:
     return {k: sorted(v) for k, v in sorted(out.items())}
 
 
-def lists_vs_plain(data, ue, ie, device, backend="kernel", topN=(10, 20)):
+def expected_routes(data, cold_object, bs, top, device) -> dict:
+    """{split: [route]} the JAX package takes (``kernel_supported``: plain
+    where a user is rated beyond the kernel's candidates)."""
+    sweep = EvalSweep(data, cold_object, bs, top, device=device)
+    return {split: ["kernel" if sweep.kernel_supported(split, kind)
+                    else "plain"]
+            for (kind, _), split in SETTING_SPLITS.items()}
+
+
+def check_routes(model, evs, expected) -> None:
+    for split, route in routes(evs).items():
+        if route != expected[split]:
+            raise AssertionError(f"{model} {split}: route {route}, the JAX "
+                                 f"package's {expected[split]}")
+
+
+def lists_vs_plain(data, ue, ie, device, backend="kernel", topN=(10, 20),
+                   cold_object="item"):
     """The three-way test of (ue, ie) through ``backend`` against the plain
     path (on the bf16-rounded tables for ``kernel_bf16``), by the rule of
     ``compare_lists``; returns {setting: (rows, id-equal rows)} and the
     kernel launches of the test."""
     reset_launches()
     got = three_way_test(data, ue, ie, topN=topN, backend=backend,
-                         device=device, verbose=False)
+                         cold_object=cold_object, device=device,
+                         verbose=False)
     launches = launch_counts()
     if backend == "kernel_bf16":
         ue, ie = ret.bf16_round(ue), ret.bf16_round(ie)
     plain = three_way_test(data, ue, ie, topN=topN, backend="plain",
-                           device=device, verbose=False)
+                           cold_object=cold_object, device=device,
+                           verbose=False)
     out = {}
     for setting, res in got.items():
         es = data.eval_splits[SETTING_SPLITS[(setting, "test")]]
@@ -1037,10 +1117,7 @@ def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
         f"{int((degree > CANDIDATES - max(topN)).sum())} users above "
         f"{CANDIDATES - max(topN)}")
     data = ColdStartDataset.from_split_dir(root, "ml_latent", "item")
-    sweep = EvalSweep(data, "item", bs, max(topN), device=device)
-    expected = {split: ["kernel" if sweep.kernel_supported(split, kind)
-                        else "plain"]
-                for (kind, _), split in SETTING_SPLITS.items()}
+    expected = expected_routes(data, "item", bs, max(topN), device)
     cold = {}
     for model, flags in (("MF", []), ("DropoutNet", list(COLD_RUNS[0][2]))):
         payload, launches, evs, secs = cli_run(device, root, "ml_latent",
@@ -1053,10 +1130,7 @@ def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
             f"{payload['metrics'][top]['all']['NDCG']['mean']:.5f}; kernel "
             f"launches { {k: v for k, v in launches.items() if v} }; routes "
             f"{routes(evs)}")
-        for split, route in routes(evs).items():
-            if route != expected[split]:
-                raise AssertionError(f"{model} {split}: route {route}, the "
-                                     f"JAX package's {expected[split]}")
+        check_routes(model, evs, expected)
         if not np.isfinite(cold[model]):
             raise AssertionError(f"{model}: cold NDCG {cold[model]}")
     rng = np.random.default_rng(seed + 3)
@@ -1072,6 +1146,431 @@ def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
     log(f"  cold NDCG@{top}, highest first: "
         + ", ".join(f"{k} {cold[k]:.5f}" for k in order))
     return cold
+
+
+# ------------------------------------------------------- the graph backbones
+def graph_stats(data) -> dict:
+    """Nodes, edges, ELL width K, tail edges, the largest degree and the
+    nodes of degree 0 of the data's normalized adjacency."""
+    host = data.norm_adj
+    cols, _, tail_rows, _, _ = spmm_mod.ell_arrays_host(host)
+    deg = np.bincount(host.rows, minlength=host.shape[0])
+    return {"nodes": int(host.shape[0]), "nnz": host.nnz,
+            "K": int(cols.shape[1]), "tail": int(tail_rows.shape[0]),
+            "tail_rows": int(np.unique(tail_rows).shape[0]),
+            "max_degree": int(deg.max()), "zero_degree": int((deg == 0).sum())}
+
+
+def check_fp32_matmul(device, n=4096, d=D, seed=0) -> float:
+    """The contrastive products (InfoNCE's 4096 x 4096, NCL's 4096 x all
+    items) must be fp32 with TF32 off, as the JAX package's CPU path: the
+    switches, then one 4096 x d x 4096 product against float64. TF32's
+    10-bit mantissa would leave ~1e-3 of the largest score. Returns the
+    relative error."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("fp32 matmuls may run in TF32")
+    rng = np.random.default_rng(seed)
+    a, b = (rng.standard_normal((n, d)) for _ in range(2))
+    got = (torch.as_tensor(a, dtype=torch.float32, device=device)
+           @ torch.as_tensor(b, dtype=torch.float32, device=device).T)
+    ref = a @ b.T
+    err = float(np.abs(got.cpu().double().numpy() - ref).max()
+                / np.abs(ref).max())
+    if err > FP32_RTOL:
+        raise AssertionError(f"{n} x {d} x {n} product: rel err {err}")
+    return err
+
+
+def graph_cli(device, root, ds, model, epochs, flags, data, d=D, bs=4096,
+              seed=0, topN=(10, 20), cold_object="item", expected=None):
+    """One graph (or cold) model through the CLI, then checked: launches,
+    the exact fallback's rows and seconds during the run, the card's peak
+    memory, each epoch's split, the three-way-test lists of the bus tables
+    against the plain path, and (``expected``) each split's route. Returns
+    the run's launches and epoch events."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    top = str(max(topN))
+    ret.apply_exact_fallback.rows = 0
+    ret.apply_exact_fallback.seconds = 0.0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    payload, launches, evs, secs = cli_run(device, root, ds, model, epochs,
+                                           flags, d, bs, seed, topN,
+                                           cold_object=cold_object)
+    fb_rows = ret.apply_exact_fallback.rows
+    fb_s = ret.apply_exact_fallback.seconds
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    first, last = log_epochs(evs)
+    end = [e for e in evs if e["event"] == "run_end"][0]
+    bus = load_embeddings(os.path.join(root, "emb"), ds, cold_object, model)
+    ue = torch.as_tensor(bus["user_emb"], device=device)
+    ie = torch.as_tensor(bus["item_emb"], device=device)
+    equal, test_launches = lists_vs_plain(data, ue, ie, device, topN=topN,
+                                          cold_object=cold_object)
+    log(f"  {model} ({cold_object} cold): {epochs} epoch(s) in {secs:.2f} s "
+        f"(CLI, set-up included); loss {first:.5f} -> {last:.5f}; kernel "
+        f"launches { {k: v for k, v in launches.items() if v} } (three-way "
+        f"test alone: {test_launches['fused_sweep']}); three-way test "
+        f"{end['test_seconds']:.3f} s; exact fallback {fb_rows} rows in "
+        f"{fb_s:.3f} s; peak card memory {peak:.2f} GiB; seconds per epoch "
+        f"{payload['efficiency']['seconds_per_completed_epoch_mean']:.3f}; "
+        f"NDCG@{top} all {payload['metrics'][top]['all']['NDCG']['mean']:.5f}"
+        f" cold {payload['metrics'][top]['cold']['NDCG']['mean']:.5f}; "
+        f"routes {routes(evs)}; test lists id-equal to the plain path "
+        + ", ".join(f"{s} {e}/{r}" for s, (r, e) in equal.items()))
+    # where the JAX package sends every split to the plain sweep (a user
+    # rated beyond the kernel's candidates), the kernel has nothing to run
+    kernel_route = True
+    if expected is not None:
+        check_routes(model, evs, expected)
+        kernel_route = ["kernel"] in expected.values()
+    if cuda and kernel_route and not launches["fused_sweep"] > 0:
+        raise AssertionError(f"{model} left the kernel unlaunched")
+    return {"launches": launches,
+            "epochs": [e for e in evs if e["event"] == "epoch"]}
+
+
+def ncl_proto(device, data, d=D, bs=4096, seed=0, steps=STEP_CHECK):
+    """NCL on the card past its warm-up: ``steps`` steps, the e-step
+    (k-means of the user and of the item tables, each timed), then
+    ``steps`` steps with the proto term on; every loss must be finite."""
+    device = torch.device(device)
+    tm = TRAINERS["NCL"](Config(default_args(
+        model="NCL", emb_size=d, bs=bs, seed=seed, save_emb=False,
+        device=str(device)), data))
+    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
+    warm = [float(tm.train_step(tm.upload(b)))
+            for _, b in zip(range(steps), batches)]
+    secs = {}
+    for side in ("user_emb", "item_emb"):
+        _sync(device)
+        t = time.perf_counter()
+        kmeans(getattr(tm.model, side).detach(), tm.k,
+               generator=tm.generator)
+        _sync(device)
+        secs[side] = time.perf_counter() - t
+    t = time.perf_counter()
+    tm.epoch_hook(ncl_mod.WARMUP_EPOCHS)
+    _sync(device)
+    e_step_s = time.perf_counter() - t
+    if not (tm._proto_on and tm.clusters[0].shape == (tm.k, d)):
+        raise AssertionError("the e-step left the proto term off")
+    proto = [float(tm.train_step(tm.upload(b)))
+             for _, b in zip(range(steps), batches)]
+    log(f"  NCL e-step on the card: k-means ({tm.k} clusters, 20 "
+        f"iterations) users {secs['user_emb']:.4f} s, items "
+        f"{secs['item_emb']:.4f} s; e-step {e_step_s:.4f} s; {steps} "
+        f"warm-up steps loss {warm[0]:.5f} -> {warm[-1]:.5f}, {steps} proto "
+        f"steps {proto[0]:.5f} -> {proto[-1]:.5f}")
+    if not np.isfinite(warm + proto).all():
+        raise AssertionError(f"NCL: non-finite losses {warm + proto}")
+
+
+def time_spmm(device, data, d=D, reps=10, seed=0) -> dict:
+    """One apply of the symmetric SpMM at the data's shape: its ELL part
+    (``embedding_bag``) and its tail (``index_add_``), each beside the form
+    it replaced (the (N, K, d) gather + ``bmm``; ``segment_reduce`` over
+    the sorted tail), the apply, forward + backward, and ``torch.sparse.mm``
+    on the same CSR matrix (a yardstick), in CUDA-event ms after a warm-up
+    (host clock on the CPU), beside its byte bound: the ELL reads
+    N*K*(4+4) bytes of indices and values and N*K*d*4 of gathered rows and
+    writes N*d*4, the tail reads T*(4+4+4) + T*d*4 and writes its rows, at
+    3.35 TB/s. Every form is held against the yardstick (``SPMM_RTOL`` of
+    the largest value)."""
+    device = torch.device(device)
+    host = data.norm_adj
+    graph = spmm_mod.build_ell(host, device=device)
+    op = spmm_mod.SymSpmm(graph)
+    n = host.shape[0]
+    k = graph.ell_cols.shape[1]
+    t = graph.tail_rows.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=gen).to(device)
+    g = torch.randn((n, d), generator=gen).to(device)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(host.rows, minlength=n), out=indptr[1:])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # CSR support "in beta state"
+        csr = torch.sparse_csr_tensor(
+            torch.as_tensor(indptr, device=device),
+            torch.as_tensor(host.cols.astype(np.int64), device=device),
+            torch.as_tensor(host.vals, device=device), size=(n, n),
+            check_invariants=False)
+    lengths = torch.bincount(graph.tail_rows, minlength=n)
+
+    def ell_gather():
+        rows = x[graph.ell_cols]  # (N, K, d)
+        return torch.bmm(graph.ell_vals.unsqueeze(1), rows).squeeze(1)
+
+    def tail_segment():
+        return torch.segment_reduce(
+            x[graph.tail_cols] * graph.tail_vals[:, None], "sum",
+            lengths=lengths, axis=0, unsafe=True)
+
+    lib = torch.sparse.mm(csr, x)
+    ells = (lambda: spmm_mod.ell_part(graph, x), ell_gather)
+    tails = (lambda: spmm_mod.tail_part(graph, x), tail_segment)
+    forms = [e() + f() for e in ells for f in tails]
+    scale = float(lib.abs().max())
+    err = max(float((v - lib).abs().max()) for v in forms)
+    if err > SPMM_RTOL * scale:
+        raise AssertionError(f"SpMM vs torch.sparse.mm: {err} (scale "
+                             f"{scale})")
+    first = op(x)
+    xr = x.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        op(xr).backward(g)
+
+    def ms(fn):
+        return erk.time_ms(fn, reps, device)
+
+    out = {
+        "ell_ms": ms(ells[0]),
+        "ell_gather_ms": ms(ell_gather),
+        "tail_ms": ms(tails[0]),
+        "tail_segment_ms": ms(tail_segment),
+        "apply_ms": ms(lambda: op(x)),
+        "fwd_bwd_ms": ms(fwd_bwd),
+        "library_ms": ms(lambda: torch.sparse.mm(csr, x)),
+    }
+    stats = graph_stats(data)
+    ell_bytes = n * k * (4 + 4) + n * k * d * 4 + n * d * 4
+    tail_bytes = t * (4 + 4 + 4) + t * d * 4 + stats["tail_rows"] * d * 4
+    # every byte read or written once: x, the edges' columns and values,
+    # the output (torch.sparse.mm comes under the gather bound above: the
+    # rows it gathers come from L2 more than once)
+    once_bytes = n * d * 4 + host.nnz * (4 + 4) + n * d * 4
+    out.update(
+        bound_ms=(ell_bytes + tail_bytes) / HBM_BYTES_S * 1e3,
+        once_bound_ms=once_bytes / HBM_BYTES_S * 1e3,
+        ell_bound_ms=ell_bytes / HBM_BYTES_S * 1e3,
+        tail_bound_ms=tail_bytes / HBM_BYTES_S * 1e3,
+        max_abs_err=err, scale=scale,
+        repeatable=bool(torch.equal(op(x), first)))
+    log(f"  SpMM {n} nodes x d={d}, K={k}, tail {t} edges: apply "
+        f"{out['apply_ms']:.3f} ms, forward + backward "
+        f"{out['fwd_bwd_ms']:.3f} ms; ELL part (embedding_bag) "
+        f"{out['ell_ms']:.3f} ms, gather + bmm {out['ell_gather_ms']:.3f} ms"
+        f" (bound {out['ell_bound_ms']:.3f}); tail (index_add_) "
+        f"{out['tail_ms']:.3f} ms, segment_reduce "
+        f"{out['tail_segment_ms']:.3f} ms (bound {out['tail_bound_ms']:.4f})"
+        f"; bound of the apply {out['bound_ms']:.3f} ms (bytes, 3.35 TB/s; "
+        f"each byte once: {out['once_bound_ms']:.4f} ms); "
+        f"torch.sparse.mm (CSR) {out['library_ms']:.3f} ms; max abs err vs "
+        f"it {err:.3e} (scale {scale:.3e}); the apply repeatable bit for "
+        f"bit: {out['repeatable']}")
+    return out
+
+
+def graph_run(device, root, ds="bx_synth", runs=GRAPH_RUNS, d=D, bs=4096,
+              topN=(10, 20), seed=0, steps=STEP_CHECK):
+    """Phase graph: the graph backbones through the CLI on phase train's
+    split (item cold), each checked by ``graph_cli``; the fp32 product
+    check; NCL's e-step and proto steps; the SpMM timed alone and its
+    share of a LightGCN step. Returns {model: launches} and the SpMM
+    times."""
+    device = torch.device(device)
+    t = time.perf_counter()
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    stats = graph_stats(data)
+    log(f"  split dir read, graph built ({time.perf_counter() - t:.2f} s): "
+        f"{stats}")
+    log(f"  fp32 products, TF32 off: rel err "
+        f"{check_fp32_matmul(device, d=d):.3e}")
+    per_model = {}
+    for model, epochs, flags in runs:
+        per_model[model] = graph_cli(device, root, ds, model, epochs, flags,
+                                     data, d, bs, seed, topN)
+    ncl_proto(device, data, d, bs, seed, steps)
+    sp = time_spmm(device, data, d)
+    epochs = per_model["LightGCN"]["epochs"] if "LightGCN" in per_model \
+        else []
+    if epochs:
+        step_ms = min(e["step_device_s"] / e["batches"] for e in epochs) * 1e3
+        # a LightGCN step applies A twice forward and twice backward
+        share = 2 * sp["fwd_bwd_ms"] / step_ms
+        sp["lightgcn_step_ms"] = step_ms
+        sp["share_of_lightgcn_step"] = share
+        log(f"  LightGCN device step {step_ms:.3f} ms (fastest epoch); its "
+            f"SpMM (2 x forward + backward) {2 * sp['fwd_bwd_ms']:.3f} ms = "
+            f"{100 * share:.1f}%")
+    return {m: r["launches"] for m, r in per_model.items()}, sp
+
+
+def graph_user_run(device, root, n_users, n_items, n_inter,
+                   content_dim=BX_USER_CONTENT, d=D, bs=4096, seed=0,
+                   topN=(10, 20)):
+    """Phase graph-user (BASELINE config 5): a user-cold split of phase
+    train's interactions with ``content_dim`` N(0,1) user-content columns;
+    XSimGCL through the CLI, then Heater on its bus (``--backbone
+    XSimGCL``), each split on the JAX package's route. Returns {model:
+    launches}."""
+    device = torch.device(device)
+    t = time.perf_counter()
+    pairs = synthetic_interactions(n_users, n_items, n_inter, seed=seed)
+    write_split(root, "bx_user", pairs, seed, content_dim,
+                cold_object="user")
+    data = ColdStartDataset.from_split_dir(root, "bx_user", "user")
+    log(f"  user-cold split written and read ({time.perf_counter() - t:.2f} "
+        f"s): {data.user_num} users x {data.item_num} items, user content "
+        f"{data.user_content.shape[1]} columns, graph {graph_stats(data)}")
+    expected = expected_routes(data, "user", bs, max(topN), device)
+    out = {}
+    for model, flags in (("XSimGCL", ("--layers", "2")),
+                         ("Heater", ("--backbone", "XSimGCL"))):
+        out[model] = graph_cli(device, root, "bx_user", model, 1, flags,
+                               data, d, bs, seed, topN, cold_object="user",
+                               expected=expected)["launches"]
+    return out
+
+
+def _tables_gap(a, b):
+    """(max abs err, elements beyond STEP_ATOL, elements) between the
+    parameters of two modules."""
+    worst, over, numel = 0.0, 0, 0
+    for p, q in zip(a.parameters(), b.parameters()):
+        diff = (p.detach().cpu() - q.detach().cpu()).abs()
+        worst = max(worst, float(diff.max()))
+        over += int((diff > STEP_ATOL).sum())
+        numel += diff.numel()
+    return worst, over, numel
+
+
+@contextlib.contextmanager
+def perturb_signs(active=True):
+    """Yields a list that gets sign(e) (int8, on the host) of every
+    perturbed layer of SimGCL's forwards run inside the block: its noise
+    is sign(e) * U * eps, so where two runs' sums of an element fall on
+    either side of 0 their forwards part by up to 2 * eps * U there."""
+    signs = []
+    perturb = simgcl_mod.perturb
+
+    def recording(ego, eps, noise=None, generator=None):
+        if noise is not None or generator is not None:
+            signs.append(torch.sign(ego.detach()).to(torch.int8).cpu())
+        return perturb(ego, eps, noise, generator)
+
+    if active:
+        simgcl_mod.perturb = recording
+    try:
+        yield signs
+    finally:
+        simgcl_mod.perturb = perturb
+
+
+def graph_step_parity(device, data, model, d=D, bs=4096, steps=STEP_CHECK,
+                      seed=0, synced=False):
+    """``steps`` steps of a graph model on ``device`` and on the CPU from
+    the same tables and batches (SimGCL: the same noise, drawn on the host
+    and injected into both). Returns {"free": (loss max rel err, tables max
+    abs err, elements beyond STEP_ATOL, elements)} after the free-running
+    steps and, with ``synced``, "synced": the same of a third trainer on
+    ``device`` that starts every step from the CPU trainer's weights and
+    Adam state (the loss over the steps without a sign flip, the tables
+    after each step), and "flips": [(step, flipped elements, loss rel
+    err)] of the steps in which the two forwards took another sign
+    somewhere (``perturb_signs``).
+
+    SimGCL's noise takes the sign of each propagated element, so its loss
+    jumps where an element's two sums fall on either side of 0: from one
+    state that happens in some steps, and once two free runs are ~1e-7
+    apart in every step, which parts them whatever the summation orders."""
+    init = GraphTables(data.user_num, data.item_num, d, seed=seed,
+                       device="cpu")
+    params = {k: v.detach().numpy() for k, v in init.named_parameters()}
+    devs = [device, torch.device("cpu")] + ([device] if synced else [])
+    card, cpu, *held = [TRAINERS[model](Config(default_args(
+        model=model, emb_size=d, bs=bs, seed=seed, save_emb=False,
+        device=str(dev)), data), init_params=params) for dev in devs]
+    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 7)
+    shape = (2, card.n_layers, data.user_num + data.item_num, d)
+    losses, synced_err, synced_gap, flip_steps = [], 0.0, (0.0, 0, 0), []
+    for i, batch in zip(range(steps), batches):
+        kw = {}
+        if model == "SimGCL":
+            kw = {"noise_pair": rng.random(shape, dtype=np.float32)}
+
+        def step(t):
+            k = {n: tuple(torch.as_tensor(x, device=t.device) for x in v)
+                 for n, v in kw.items()}
+            return float(t.train_step(t.upload(batch), **k))
+
+        for t in held:
+            t.model.load_state_dict(cpu.model.state_dict())
+            t.optimizer.load_state_dict(
+                copy.deepcopy(cpu.optimizer.state_dict()))
+        step_losses, signs = [], []
+        for t in (card, cpu, *held):
+            with perturb_signs(synced and t is not card) as rec:
+                step_losses.append(step(t))
+            signs.append(rec)
+        flips = sum(int((a != b).sum()) for a, b in zip(*signs[1:]))
+        losses.append(step_losses[:2])
+        for t, loss in zip(held, step_losses[2:]):
+            err = abs(loss - step_losses[1]) / abs(step_losses[1])
+            if flips:
+                flip_steps.append((i, flips, err))
+            else:
+                synced_err = max(synced_err, err)
+            gap = _tables_gap(t.model, cpu.model)
+            synced_gap = (max(synced_gap[0], gap[0]),
+                          max(synced_gap[1], gap[1]), gap[2])
+    losses = np.asarray(losses)
+    out = {"free": (float(np.max(np.abs(losses[:, 0] - losses[:, 1])
+                                 / np.abs(losses[:, 1]))),
+                    *_tables_gap(card.model, cpu.model))}
+    if synced:
+        out["synced"] = (synced_err, *synced_gap)
+        out["flips"] = flip_steps
+    return out
+
+
+def graph_ml_run(device, root, ds="ml_latent", epochs=5, d=D, bs=4096,
+                 seed=0, topN=(10, 20), steps=STEP_CHECK):
+    """Phase graph-ml (BASELINE config 2): LightGCN on phase cold-signal's
+    latent split at MovieLens-1M shape for ``epochs`` epochs through the
+    CLI, each split on the JAX package's route; then ``steps`` LightGCN and
+    SimGCL steps on the card against the CPU: LightGCN's free runs held;
+    SimGCL held step by step from the CPU's state, the loss on the steps
+    in which no element's sign flips (at least half of them), its free
+    runs and the steps with flips logged (``graph_step_parity``). Returns
+    {model: launches}."""
+    device = torch.device(device)
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    log(f"  graph {graph_stats(data)}")
+    expected = expected_routes(data, "item", bs, max(topN), device)
+    out = {"LightGCN": graph_cli(device, root, ds, "LightGCN", epochs,
+                                 ("--layers", "2"), data, d, bs, seed, topN,
+                                 expected=expected)["launches"]}
+    for model in ("LightGCN", "SimGCL"):
+        t = time.perf_counter()
+        synced = model == "SimGCL"
+        res = graph_step_parity(device, data, model, d, bs, steps, seed,
+                                synced=synced)
+        flips = res.pop("flips", [])
+        text = {how: f"loss max rel err {e:.3e}, tables max abs err "
+                     f"{worst:.3e}, {over} of {numel} elements beyond "
+                     f"{STEP_ATOL}"
+                for how, (e, worst, over, numel) in res.items()}
+        log(f"  {model}: {steps} steps {device.type} vs cpu "
+            f"({time.perf_counter() - t:.2f} s): free-running {text['free']}"
+            + (f"; each step from the CPU's state: {steps - len(flips)} "
+               f"steps without a sign flip, {text['synced']} (tables after "
+               f"one step); steps with flips (step, elements, loss rel err) "
+               f"{[(i, n, float(f'{e:.3e}')) for i, n, e in flips]}"
+               if synced else ""))
+        loss_err, worst, over, numel = res["synced" if synced else "free"]
+        limit = STEP_MAX_ERR / steps if synced else STEP_MAX_ERR
+        if not (loss_err <= STEP_LOSS_RTOL and worst <= limit
+                and over <= STEP_FLIPS * numel
+                and 2 * len(flips) <= steps):
+            raise AssertionError(f"{model}: the card's steps disagree with "
+                                 "the CPU's")
+    return out
 
 
 def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
@@ -1520,8 +2019,20 @@ def main() -> int:
         run_phase("train", train_run, device, *BX, root=root,
                   content_dim=BX_CONTENT)
         bf16_launches, _ = run_phase("cold", cold_run, device, root)
+        graph, _ = run_phase("graph", graph_run, device, root)
+        graph_user = run_phase("graph-user", graph_user_run, device, root,
+                               *BX)
     with tempfile.TemporaryDirectory() as root:
         run_phase("cold-signal", signal_run, device, root)
+        graph_ml = run_phase("graph-ml", graph_ml_run, device, root)
+    graph_launches = {name: sum(r[name] for runs in (graph, graph_user,
+                                                     graph_ml)
+                                for r in runs.values())
+                      for name in ("fused_sweep", "merge_parts")}
+    log(f"  graph phases: {graph_launches} launches (fused_sweep: graph "
+        f"{sum(r['fused_sweep'] for r in graph.values())}, graph-user "
+        f"{sum(r['fused_sweep'] for r in graph_user.values())}, graph-ml "
+        f"{sum(r['fused_sweep'] for r in graph_ml.values())})")
     variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
@@ -1550,7 +2061,7 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
-        "launches": launches["fused_sweep"],
+        "launches": launches["fused_sweep"] + graph_launches["fused_sweep"],
         "max_abs_err": max([e["max_abs_err"] for e in errs]
                            + [exact["fused_sweep"]]),
         "ms": t["ms"],
@@ -1573,7 +2084,7 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
-        "launches": launches["merge_parts"],
+        "launches": launches["merge_parts"] + graph_launches["merge_parts"],
         "max_abs_err": max(errs[1]["merge_err"], exact["merge_parts"]),
         **{k: tm[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")},

@@ -10,11 +10,14 @@ Layers (the main path, ``python -m coldrec_tpu_torch.main --model MF``):
   - ``config``   the JAX CLI's flags and defaults, plus ``--device``.
   - ``models``   ``MF`` (tables, BPR + L2 loss) and ``MFTrainer`` on the
                  shared warm-backbone loop (Adam, per-epoch validation,
-                 early stop, train-state resume, the embedding bus).
+                 early stop, train-state resume, the embedding bus); the
+                 graph backbones (LightGCN, NGCF, SimGCL, XSimGCL, NCL) and
+                 the cold-start models on the same loop.
   - ``data``     host-side split protocol, id remap, eval-split ground truth,
                  BPR batches from the native negative sampler (``native``,
                  ``csrc/host_sampler.cpp``).
-  - ``ops``      the losses; ``ops.cuda``: the hand-written Hopper retrieval
+  - ``ops``      the losses, the graph SpMM, k-means; ``ops.cuda``: the
+                 hand-written Hopper retrieval
                  kernel (``csrc/``), its nvcc + ctypes build and its plain
                  PyTorch version.
   - ``runtime``  trainer contract, eval sweep, three-way test, checkpoints

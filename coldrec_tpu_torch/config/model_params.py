@@ -1,7 +1,8 @@
 """Per-model flag registry (the port's copy of the ported models' part of
 ``coldrec_tpu/config/model_params.py``; reference config/model_param.py).
 
-MF, DeepMusic and DUIF add no flags of their own. Every model of the JAX
+MF, DeepMusic, DUIF, LightGCN and NGCF add no flags of their own (the
+graph backbones' ``--layers`` is a common flag, default 2). Every model of the JAX
 package that is not ported yet is refused with the ROADMAP queue item that
 brings it to the port.
 """
@@ -34,11 +35,22 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
         "alpha": 0.5,
         "heater_mlp_hidden": 200,
     },
+    "LightGCN": {},
+    "NGCF": {},
+    "SimGCL": {"cl_rate": 0.5, "tau": 0.2, "eps": 0.1},
+    "XSimGCL": {"cl_rate": 0.5, "tau": 0.2, "eps": 0.1, "l_cl": 2},
+    "NCL": {
+        "tau": 0.2,
+        "ssl_reg": 1e-6,
+        "proto_reg": 1e-7,
+        "alpha": 1.0,
+        "hyper_layers": 1,
+        "num_clusters": 20,
+    },
 }
 
 # ROADMAP.md, Queue 1: the item that ports each model of the JAX package
 _QUEUE_ITEM = {
-    **dict.fromkeys(("LightGCN", "NGCF", "SimGCL", "XSimGCL", "NCL"), 4),
     **dict.fromkeys(("KNN", "AGNN"), 5),
     **dict.fromkeys(("VBPR", "AMR", "MTPR", "LARA", "MetaEmbedding",
                      "CLCRec", "GoRec", "CCFCRec", "M2VAE", "CGRC", "FSGNN",

@@ -1,8 +1,6 @@
 """ColdStartDataset — the central host-side data object.
 
-The port's copy of ``coldrec_tpu/data/builder.py`` without its graph half
-(``SparseGraphHost``, ``interaction_csr``, ``bipartite_adjacency``,
-``normalize_graph``, ``norm_adj``), which comes with the LightGCN slice.
+The port's copy of ``coldrec_tpu/data/builder.py``.
 
 A vectorized, static-shape rebuild of the reference's ``ColdStartDataBuilder``
 (ColdRec util/databuilder.py:6-385). Protocol-critical semantics preserved:
@@ -17,11 +15,16 @@ A vectorized, static-shape rebuild of the reference's ``ColdStartDataBuilder``
     mapped-id order. Divergence (documented): rows for entities never seen in
     any split are zero-filled; the reference leaves them uninitialized
     (``np.empty``), which is nondeterministic garbage.
+  * **Graphs** (databuilder.py:220-275): symmetric-normalized bipartite
+    adjacency D^-1/2 (A+A^T) D^-1/2 over (user_num+item_num) nodes and the
+    user x item interaction CSR, emitted as row-sorted COO index/value
+    arrays (``ops/spmm.py`` turns them into the ELL + COO device layout).
   * **Warm/cold id arrays** (databuilder.py:76-83): both raw ("source") and
     mapped index arrays; unknown ids raise, matching get_user_id_list.
 
-Everything here is host-side numpy — one-time preprocessing. Tensors are
-produced on demand by the runtime/eval layers.
+Everything here is host-side numpy and scipy — one-time preprocessing, bit
+for bit the JAX package's. Tensors are produced on demand by the
+runtime/eval layers and ``ops/spmm.py``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 
 # Reference iteration order of generate_set (databuilder.py:90-218).
 SPLIT_ORDER = (
@@ -112,8 +116,34 @@ def _build_eval_split(pairs: np.ndarray) -> EvalSplit:
     return EvalSplit(users=users_order, indptr=indptr, items=items_s.astype(np.int64))
 
 
+@dataclass
+class SparseGraphHost:
+    """COO sparse matrix as flat arrays (host-side, ready for device)."""
+
+    rows: np.ndarray  # int32
+    cols: np.ndarray  # int32
+    vals: np.ndarray  # float32
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_scipy(cls, mat: sp.spmatrix) -> "SparseGraphHost":
+        coo = mat.tocoo()
+        # rows ascending (stable), as the device layout expects
+        order = np.argsort(coo.row, kind="stable")
+        return cls(
+            rows=coo.row[order].astype(np.int32),
+            cols=coo.col[order].astype(np.int32),
+            vals=coo.data[order].astype(np.float32),
+            shape=tuple(mat.shape),
+        )
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+
 class ColdStartDataset:
-    """Mapped-id dataset with the eval and rated-mask structures."""
+    """Mapped-id dataset with the eval, rated-mask and graph structures."""
 
     def __init__(
         self,
@@ -211,6 +241,10 @@ class ColdStartDataset:
             name: _build_eval_split(self.splits[name]) for name in EVAL_SPLITS
         }
 
+        # ---- graphs (lazy) ----
+        self._norm_adj: Optional[SparseGraphHost] = None
+        self._interaction: Optional[sp.csr_matrix] = None
+
     # ------------------------------------------------------------------ ids
     @staticmethod
     def _remap_content(content, order, num) -> Optional[np.ndarray]:
@@ -278,6 +312,60 @@ class ColdStartDataset:
             np.searchsorted(self._train_keys, keys), self._train_keys.shape[0] - 1
         )
         return self._train_keys[pos] == keys
+
+    # ---------------------------------------------------------------- graphs
+    @property
+    def interaction_csr(self) -> sp.csr_matrix:
+        """User x item training interaction matrix (databuilder.py:265-275)."""
+        if self._interaction is None:
+            tp = self.train_pairs
+            self._interaction = sp.csr_matrix(
+                (
+                    np.ones(tp.shape[0], dtype=np.float32),
+                    (tp[:, 0], tp[:, 1]),
+                ),
+                shape=(self.user_num, self.item_num),
+            )
+        return self._interaction
+
+    def bipartite_adjacency(self, self_connection: bool = False) -> sp.csr_matrix:
+        """(U+I)x(U+I) bipartite adjacency (databuilder.py:220-234)."""
+        n = self.user_num + self.item_num
+        tp = self.train_pairs
+        a = sp.csr_matrix(
+            (
+                np.ones(tp.shape[0], dtype=np.float32),
+                (tp[:, 0], tp[:, 1] + self.user_num),
+            ),
+            shape=(n, n),
+        )
+        adj = a + a.T
+        if self_connection:
+            adj = adj + sp.eye(n, dtype=np.float32, format="csr")
+        return adj
+
+    @staticmethod
+    def normalize_graph(adj: sp.spmatrix) -> sp.csr_matrix:
+        """Symmetric D^-1/2 A D^-1/2 (square) or row D^-1 A
+        (databuilder.py:236-254); a row of degree 0 keeps 0."""
+        rowsum = np.asarray(adj.sum(1)).flatten()
+        if adj.shape[0] == adj.shape[1]:
+            d_inv = np.zeros_like(rowsum, dtype=np.float32)
+            np.power(rowsum, -0.5, out=d_inv, where=rowsum != 0)
+            d = sp.diags(d_inv)
+            return (d @ adj @ d).tocsr()
+        d_inv = np.zeros_like(rowsum, dtype=np.float32)
+        np.power(rowsum, -1.0, out=d_inv, where=rowsum != 0)
+        return (sp.diags(d_inv) @ adj).tocsr()
+
+    @property
+    def norm_adj(self) -> SparseGraphHost:
+        """Normalized bipartite adjacency as row-sorted COO arrays."""
+        if self._norm_adj is None:
+            self._norm_adj = SparseGraphHost.from_scipy(
+                self.normalize_graph(self.bipartite_adjacency())
+            )
+        return self._norm_adj
 
     # ------------------------------------------------------------------ eval
     def rated_padded(self, eval_users: np.ndarray) -> np.ndarray:

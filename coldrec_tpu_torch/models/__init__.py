@@ -9,7 +9,12 @@ from .dropoutnet import DropoutNetTrainer
 from .duif import DUIFTrainer
 from .gar import GARTrainer
 from .heater import HeaterTrainer
+from .lightgcn import LightGCNTrainer
 from .mf import MF, MFTrainer
+from .ncl import NCLTrainer
+from .ngcf import NGCFTrainer
+from .simgcl import SimGCLTrainer
+from .xsimgcl import XSimGCLTrainer
 
 TRAINERS = {
     "MF": MFTrainer,
@@ -19,6 +24,11 @@ TRAINERS = {
     "DeepMusic": DeepMusicTrainer,
     "DUIF": DUIFTrainer,
     "Heater": HeaterTrainer,
+    "LightGCN": LightGCNTrainer,
+    "NGCF": NGCFTrainer,
+    "SimGCL": SimGCLTrainer,
+    "XSimGCL": XSimGCLTrainer,
+    "NCL": NCLTrainer,
 }
 
 __all__ = ["MF", "MFTrainer", "TRAINERS", "model_factory"]

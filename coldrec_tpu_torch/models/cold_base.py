@@ -102,11 +102,3 @@ class ColdStartModelBase(WarmBackboneTrainer):
                 f"{self.model_name} only supports item cold-start "
                 f"(got cold_object={self.args.cold_object})"
             )
-
-    def init_module(self, cls, init_params, init_state, **kw):
-        """``cls(**kw, device=...)``, seeded from ``--seed``, or the module
-        holding the JAX package's ``params`` / ``net_state`` (numpy)."""
-        module = cls(**kw, seed=self.seed, device=self.device)
-        if init_params is not None:
-            module.load_jax(init_params, init_state)
-        return module

@@ -7,7 +7,9 @@ The reference's warm backbones share one loop: epochs over
 embedding bus. The cold-start models (``cold_base.py``) share it too.
 Subclasses set ``self.model``, an ``nn.Module``, and implement
 ``loss(batch)`` and, unless the module's ``forward_tables()`` gives them,
-``forward_tables()``; everything else lives here once.
+``forward_tables()``; ``epoch_hook(epoch)`` runs at the start of every
+epoch (NCL's e-step), and the graph backbones take their propagation
+operator from ``build_graph()``; everything else lives here once.
 
 The eval tables are recomputed after every epoch (``refresh_tables``: the
 module in eval mode under ``no_grad``, then back in training mode) as new
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..data.sampler import pairwise_batches
+from ..ops.spmm import make_sym_spmm
 from ..runtime.checkpoints import (
     load_train_state, save_embeddings, save_train_state,
 )
@@ -78,6 +81,21 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             self.user_emb, self.item_emb = ue.clone(), ie.clone()
         self.model.train()
 
+    def init_module(self, cls, init_params=None, init_state=None, **kw):
+        """``cls(**kw, device=...)``, seeded from ``--seed``, or the module
+        holding the JAX package's ``params`` / ``net_state`` (numpy)."""
+        module = cls(**kw, seed=self.seed, device=self.device)
+        if init_params is not None:
+            module.load_jax(init_params, init_state)
+        return module
+
+    def build_graph(self):
+        """The normalized-adjacency SpMM operator of the graph backbones:
+        the ELL + COO layout with the symmetric custom backward, on the
+        trainer's device (the single-device path of the JAX package's
+        ``build_graph``; ``--mesh`` is refused by ``setup_optimizer``)."""
+        return make_sym_spmm(self.data.norm_adj, device=self.device)
+
     # ------------------------------------------------------------- contract
     def forward_tables(self):
         """The (user, item) eval tables of the current weights."""
@@ -85,6 +103,9 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
+
+    def epoch_hook(self, epoch: int):
+        """Called at the start of every epoch (e.g. NCL's e-step)."""
 
     def extra_saved_tensors(self) -> Dict[str, torch.Tensor]:
         """Tensors written to the bus beside the best tables."""
@@ -211,6 +232,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         start_epoch = self._try_resume()
         epoch = start_epoch - 1
         for epoch in range(start_epoch, self.max_epoch):
+            self.epoch_hook(epoch)
             stats = self._train_epoch(epoch)
             self.refresh_tables()
             stop = False

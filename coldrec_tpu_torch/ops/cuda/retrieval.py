@@ -52,6 +52,7 @@ tensor.
 """
 from __future__ import annotations
 
+import time
 from typing import Tuple
 
 import numpy as np
@@ -312,10 +313,13 @@ def apply_exact_fallback(vals, ids, sus, exact_chunk_fn, chunk=FALLBACK_CHUNK):
     Chunking bounds memory when a degenerate score distribution flags every
     row at once (one 4096-row chunk at 270,170 items is a 4.4 GB plane).
     Padding policy (as in the JAX package): row counts below ``chunk`` round
-    up to a multiple of 8, larger counts to whole chunks."""
+    up to a multiple of 8, larger counts to whole chunks. The rows and the
+    host seconds spent add up in ``apply_exact_fallback.rows`` / ``.seconds``
+    (e.g. SimGCL's all-tie cold rows)."""
     rows = np.flatnonzero(sus)
     if rows.size == 0:
         return
+    t = time.perf_counter()
     n_pad = _round_up(rows.size, 8 if rows.size < chunk else chunk)
     rows_pad = np.zeros(n_pad, np.int64)
     rows_pad[: rows.size] = rows
@@ -326,6 +330,12 @@ def apply_exact_fallback(vals, ids, sus, exact_chunk_fn, chunk=FALLBACK_CHUNK):
         fis.append(np.asarray(fi))
     vals[rows] = np.concatenate(fvs)[: rows.size]
     ids[rows] = np.concatenate(fis)[: rows.size]
+    apply_exact_fallback.rows += int(rows.size)
+    apply_exact_fallback.seconds += time.perf_counter() - t
+
+
+apply_exact_fallback.rows = 0
+apply_exact_fallback.seconds = 0.0
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:

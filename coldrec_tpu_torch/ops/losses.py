@@ -1,6 +1,7 @@
-"""BPR, L2 and MSE losses on tensors, weighted for padding (the port's copy
-of ``bpr_loss``, ``l2_reg_loss``, ``mse_loss`` and ``_wmean`` from
-``coldrec_tpu/ops/losses.py``; reference ColdRec util/utils.py:25-48).
+"""BPR, L2, MSE and contrastive losses on tensors, weighted for padding
+(the port's copy of ``bpr_loss``, ``l2_reg_loss``, ``mse_loss``,
+``_wmean``, ``_normalize``, ``unique_padded`` and ``info_nce_masked`` from
+``coldrec_tpu/ops/losses.py``; reference ColdRec util/utils.py:25-76).
 
 Every batch has a fixed row count; the last batch of an epoch is padded and
 carries ``weight`` (1.0 real / 0.0 pad), so the weighted mean equals the
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _BPR_EPS = 1e-5  # reference writes 10e-6 (utils.py:28)
 
@@ -63,3 +65,54 @@ def mse_loss(
         return sq.mean()
     w = weight.reshape((-1,) + (1,) * (sq.dim() - 1))
     return (sq * w).sum() / (w.sum() * sq.shape[-1]).clamp_min(1.0)
+
+
+def _normalize(x: torch.Tensor, dim: int = -1,
+               eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) (``F.normalize``)."""
+    return F.normalize(x, dim=dim, eps=eps)
+
+
+def unique_padded(ids: torch.Tensor, weight: Optional[torch.Tensor],
+                  size: int, sentinel: int):
+    """Static-shape unique: returns (safe_ids, valid_mask), both of length
+    ``size`` (>= len(ids)).
+
+    The reference calls ``torch.unique`` on the batch ids before its CL
+    losses (SimGCL.py:54-55); on the card that returns a data-dependent
+    size and waits for the device every step. Here the ids of the weight-0
+    rows become ``sentinel`` (greater than every id), the ids are sorted,
+    the first of each run is kept and packed to the front by a prefix sum:
+    the ascending uniques, then pad entries (id 0, mask 0), as
+    ``jnp.unique(size=size, fill_value=sentinel)`` and a mask give."""
+    if weight is not None:
+        ids = torch.where(weight > 0, ids, torch.full_like(ids, sentinel))
+    s = torch.sort(ids).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    keep = first & (s != sentinel)
+    # kept ids to their rank among the kept, the others to a spill slot
+    slot = torch.where(keep, torch.cumsum(keep, 0) - 1,
+                       torch.full_like(s, size))
+    out = torch.zeros(size + 1, dtype=ids.dtype, device=ids.device)
+    out.scatter_(0, slot, torch.where(keep, s, torch.zeros_like(s)))
+    mask = torch.zeros(size + 1, dtype=torch.float32, device=ids.device)
+    mask.scatter_(0, slot, keep.float())
+    return out[:size], mask[:size]
+
+
+def info_nce_masked(view1: torch.Tensor, view2: torch.Tensor,
+                    valid: torch.Tensor, temperature: float) -> torch.Tensor:
+    """InfoNCE over a padded unique batch: padded rows are dropped and
+    padded columns are excluded from every denominator, which is the
+    reference's InfoNCE on the unpadded unique set; the order of the
+    unique ids does not matter."""
+    v1 = _normalize(view1)
+    v2 = _normalize(view2)
+    logits = (v1 @ v2.T) / temperature
+    neg_inf = torch.finfo(logits.dtype).min
+    logits = torch.where(valid[None, :] > 0, logits,
+                         torch.full_like(logits, neg_inf))
+    log_prob = torch.diagonal(logits) - torch.logsumexp(logits, dim=1)
+    return -_wmean(torch.where(valid > 0, log_prob,
+                               torch.zeros_like(log_prob)), valid)

@@ -607,3 +607,105 @@ def test_bf16_kernel_refuses_misaligned_items(cuda):
         tret.fused_sweep(ub, odd, excl_row)
     with pytest.raises(TypeError, match="one type"):
         tret.fused_sweep(ub, items_t, excl_row)
+
+
+# ------------------------------------------------------------ graph path
+def _graph_data():
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+
+    return synthetic_dataset(n_users=300, n_items=500, n_inter=9000,
+                             cold_object="item", seed=3)[0]
+
+
+def test_spmm_on_card_matches_cpu(cuda):
+    """The ELL + tail apply and its symmetric backward on the card against
+    the same plain torch on the CPU (fp32 sums in another order)."""
+    from coldrec_tpu_torch.ops import spmm
+
+    data = _graph_data()
+    gen = torch.Generator().manual_seed(0)
+    n = data.norm_adj.shape[0]
+    x, g = (torch.randn((n, 64), generator=gen) for _ in range(2))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        graph = spmm.build_ell(data.norm_adj, device=dev)
+        assert graph.tail_rows.shape[0] > 0
+        xr = x.to(dev).requires_grad_(True)
+        y = spmm.SymSpmm(graph)(xr)
+        y.backward(g.to(dev))
+        out[dev.type] = (spmm.ell_apply(graph, x.to(dev)).cpu(),
+                         y.detach().cpu(), xr.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_unique_padded_and_info_nce_do_not_sync(cuda):
+    """SimGCL's CL term runs without a device -> host synchronisation."""
+    from coldrec_tpu_torch.ops.losses import info_nce_masked, unique_padded
+
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 100, (256,), generator=gen).to(cuda)
+    w = torch.ones(256, device=cuda)
+    w[-17:] = 0
+    v1, v2 = (torch.randn((101, 16), generator=gen).to(cuda)
+              for _ in range(2))
+    torch.cuda.synchronize(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, m = unique_padded(ids, w, 256, 100)
+        loss = info_nce_masked(v1[u], v2[u], m, 0.2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cu, cm = unique_padded(ids.cpu(), w.cpu(), 256, 100)
+    assert torch.equal(u.cpu(), cu) and torch.equal(m.cpu(), cm)
+    ref = info_nce_masked(v1.cpu()[cu], v2.cpu()[cu], cm, 0.2)
+    torch.testing.assert_close(loss.cpu(), ref, rtol=1e-5, atol=0)
+
+
+def test_kmeans_on_card_matches_cpu(cuda):
+    from coldrec_tpu_torch.ops.kmeans import kmeans
+
+    x = torch.randn((3000, 64), generator=torch.Generator().manual_seed(2))
+    init = torch.randperm(3000, generator=torch.Generator().manual_seed(3))[
+        :20]
+    gc, ga = kmeans(x.to(cuda), 20, init_idx=init)
+    cc, ca = kmeans(x, 20, init_idx=init)
+    assert torch.equal(ga.cpu(), ca)
+    torch.testing.assert_close(gc.cpu(), cc, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", ["LightGCN", "SimGCL"])
+def test_graph_steps_on_card_match_cpu(cuda, model):
+    """5 steps of a graph model on the card and on the CPU from the same
+    tables and batches (SimGCL: the same injected noise): losses within
+    1e-5 relative, tables within 2 * lr a step (Adam's sign flips)."""
+    from coldrec_tpu_torch.config import default_args
+    from coldrec_tpu_torch.data.sampler import pairwise_batches
+    from coldrec_tpu_torch.models import TRAINERS
+    from coldrec_tpu_torch.models.lightgcn import GraphTables
+    from coldrec_tpu_torch.runtime.trainer import Config
+
+    data = _graph_data()
+    init = {k: v.detach().numpy() for k, v in GraphTables(
+        data.user_num, data.item_num, 32, seed=4,
+        device="cpu").named_parameters()}
+    trainers = [TRAINERS[model](Config(default_args(
+        model=model, emb_size=32, bs=512, seed=4, save_emb=False,
+        device=str(dev)), data), init_params=init)
+        for dev in (cuda, torch.device("cpu"))]
+    rng = np.random.default_rng(5)
+    n = data.user_num + data.item_num
+    for _, batch in zip(range(5), pairwise_batches(
+            data, 512, np.random.default_rng(4))):
+        kw = [{}, {}]
+        if model == "SimGCL":
+            noise = rng.random((2, 2, n, 32), dtype=np.float32)
+            kw = [{"noise_pair": tuple(torch.as_tensor(v, device=t.device)
+                                       for v in noise)} for t in trainers]
+        a, b = (float(t.train_step(t.upload(batch), **k))
+                for t, k in zip(trainers, kw))
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    for p, q in zip(trainers[0].model.parameters(),
+                    trainers[1].model.parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= \
+            2 * 1e-3 * 5

@@ -328,3 +328,94 @@ def test_chip_smoke_cold_phases_rehearse_on_cpu_without_jax(tmp_path):
                  "chance (N(0,1) tables)", "'cold_test': ['kernel']",
                  "cold NDCG@20, highest first"):
         assert line in proc.stdout, line
+
+
+GRAPH_MODULES = ("coldrec_tpu_torch.ops.spmm", "coldrec_tpu_torch.ops.kmeans",
+                 "coldrec_tpu_torch.models.lightgcn",
+                 "coldrec_tpu_torch.models.ngcf",
+                 "coldrec_tpu_torch.models.simgcl",
+                 "coldrec_tpu_torch.models.xsimgcl",
+                 "coldrec_tpu_torch.models.ncl")
+
+
+def test_graph_modules_import_without_jax(tmp_path):
+    """The graph slice's modules are among the files checked above and
+    import in a process where jax and coldrec_tpu are blocked."""
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in GRAPH_MODULES:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = "import importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in GRAPH_MODULES) + (
+        "from coldrec_tpu_torch.models import TRAINERS\n"
+        "assert {'LightGCN', 'NGCF', 'SimGCL', 'XSimGCL', 'NCL'} <= "
+        "set(TRAINERS)\n"
+        "print('GRAPH IMPORTS OK')\n")
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "GRAPH IMPORTS OK" in proc.stdout
+
+
+@pytest.mark.parametrize("model", ["LightGCN", "NGCF", "SimGCL", "XSimGCL",
+                                   "NCL"])
+def test_graph_trainers_default_to_the_card(model):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run on it")
+    from coldrec_tpu_torch.config import default_args
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+    from coldrec_tpu_torch.models import model_factory
+    from coldrec_tpu_torch.ops.spmm import build_ell
+    from coldrec_tpu_torch.runtime.trainer import Config
+
+    data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model_factory(Config(default_args(model=model), data))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_ell(data.norm_adj)
+
+
+def test_chip_smoke_graph_phases_rehearse_on_cpu_without_jax(tmp_path):
+    """Phases graph, graph-user and graph-ml at a tiny size on the CPU,
+    with jax and coldrec_tpu blocked: the five graph models through the CLI
+    on an item-cold split (lists held to the plain path, SimGCL's and
+    XSimGCL's all-tie cold rows through the exact fallback), NCL's e-step
+    and proto steps, the SpMM timed alone; XSimGCL then Heater on its bus
+    under user cold start; LightGCN on a latent split and the LightGCN and
+    SimGCL steps device against CPU."""
+    code = (
+        "import tempfile\n"
+        "import chip_smoke as cs\n"
+        "for m in ('jax', 'coldrec_tpu'):\n"
+        "    assert sys.modules[m] is None\n"
+        "pairs = cs.synthetic_interactions(300, 2000, 8000, seed=0)\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cs.write_split(root, 'bx_synth', pairs, 0, 12)\n"
+        "    graph, sp = cs.graph_run('cpu', root, d=16, bs=256, steps=3)\n"
+        "    user = cs.graph_user_run('cpu', root, 300, 2000, 8000,\n"
+        "                             content_dim=24, d=16, bs=256)\n"
+        "assert set(graph) == {m for m, _, _ in cs.GRAPH_RUNS}, graph\n"
+        "assert set(user) == {'XSimGCL', 'Heater'}, user\n"
+        "assert sp['bound_ms'] > 0 and sp['fwd_bwd_ms'] > 0, sp\n"
+        "assert 0 < sp['share_of_lightgcn_step'], sp\n"
+        "pairs, _, vf = cs.latent_interactions(500, 300, 20000, seed=0)\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cs.write_split(root, 'ml_latent', pairs, 0, 8,\n"
+        "                   cs.latent_content(vf, 8, seed=0))\n"
+        "    ml = cs.graph_ml_run('cpu', root, epochs=2, d=16, bs=256,\n"
+        "                         steps=3)\n"
+        "assert set(ml) == {'LightGCN'}, ml\n"
+        "print('GRAPH OK')\n"
+    )
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "GRAPH OK" in proc.stdout
+    for line in ("fp32 products, TF32 off", "LightGCN (item cold): 2 epoch",
+                 "NGCF (item cold): 1 epoch", "NCL e-step on the card",
+                 "3 proto steps", "segment_reduce",
+                 "torch.sparse.mm (CSR)", "XSimGCL (user cold): 1 epoch",
+                 "Heater (user cold): 1 epoch", "user content 24 columns",
+                 "LightGCN: 3 steps cpu vs cpu", "SimGCL: 3 steps cpu vs cpu",
+                 "id-equal to the plain path all"):
+        assert line in proc.stdout, line
+    fallback = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("  SimGCL (item cold)")]
+    assert fallback and "exact fallback 0 rows" not in fallback[0]

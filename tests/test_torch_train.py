@@ -259,7 +259,7 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,match", [
-    ("LightGCN", "Queue 1, item 4"), ("AGNN", "Queue 1, item 5"),
+    ("VBPR", "Queue 1, item 6"), ("AGNN", "Queue 1, item 5"),
     ("KNN", "Queue 1, item 5"), ("CLCRec", "Queue 1, item 6"),
     ("NotAModel", "Invalid model name"),
 ])
