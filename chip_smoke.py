@@ -32,6 +32,20 @@ Phases, each printed with its seconds:
               merge) must have launched (launch counts are zeroed just before
               the main path); then the steps of ``retrieval_topk`` after the
               kernel timed on their own for the overall test setting;
+  knn         content KNN (``ops/knn.py``) at book-crossing's content
+              widths: (a) 54,034 x 216,136 at d=416, k=5 (KNN, item cold),
+              (b) 18,422 x 73,685 at d=2,312, k=5 (KNN, user cold), (c)
+              270,170 x 216,136 at d=416, k=11 (AGNN's item side); the
+              entry point (the kernel route on the card, launch counts
+              zeroed just before and read just after) against the plain
+              route: on integer tables in [-3, 3] (a, b) ids and values bit
+              for bit, and the first 2048 queries' sweep bit for bit
+              against its plain version; on N(0,1) tables ids equal but
+              at near-ties by the rule of phase 3; each shape then timed
+              warm: the entry point, the kernel's sweeps alone (CUDA
+              events), the plain route and the library yardstick (TF32-off
+              ``torch.mm`` + ``topk(k + 1)`` per chunk) beside the bound,
+              with its fallback rows and peak card memory;
   6. train    MF trained through the port's CLI entry
               (``coldrec_tpu_torch.main.run``) at book-crossing shape from a
               split directory, d=64, bs 4096, lr 1e-3, reg 1e-4, 3 epochs,
@@ -61,6 +75,16 @@ Phases, each printed with its seconds:
               tables); then 20 DropoutNet and 20 ALDI steps on the card
               against the same steps on the CPU (same weights, batches and
               dropped rows);
+  content     the content-feature cold models through the CLI on that
+              split and MF bus (d=64, bs 4096, one epoch each): KNN, AGNN,
+              VBPR, then AMR on VBPR's bus, MTPR, MetaEmbedding, LARA,
+              CLCRec and GoRec, each checked as in phase graph (launches,
+              time split, fallback, peak memory, lists held to the plain
+              path, every split's route) with its content searches
+              (``knn_route`` events) on the JAX package's route; then 20
+              VBPR steps (Adagrad + Adam) and 20 MetaEmbedding steps
+              (second order) on the card against the same steps on the
+              CPU, held as phase cold holds DropoutNet's;
   graph       the graph backbones through the CLI on that split (d=64, bs
               4096, --layers 2): LightGCN 2 epochs, NGCF, SimGCL, XSimGCL
               and NCL 1 (BASELINE config 2's model and config 5's
@@ -172,6 +196,7 @@ from coldrec_tpu_torch.models.mf import MF, MFTrainer
 from coldrec_tpu_torch.ops import spmm as spmm_mod
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda import retrieval as ret
+from coldrec_tpu_torch.ops import knn as knn_mod
 from coldrec_tpu_torch.ops.kmeans import kmeans
 from coldrec_tpu_torch.ops.cuda.retrieval import (
     CANDIDATES, INIT_NEG, LANES, SLOTS, USER_CHUNK, fused_sweep,
@@ -265,6 +290,33 @@ GRAPH_RUNS = (
     ("NCL", 1, ("--layers", "2")),
 )
 BX_USER_CONTENT = 2_312
+# Phase knn: content KNN through the retrieval kernel at book-crossing's
+# content widths: (tag, queries, values, d, k). (a) KNN under item cold
+# start: the 54,034 cold items x the 216,136 warm ones of phase train's
+# split, 416 columns; (b) under user cold start: the 18,422 cold users x
+# the 73,685 warm ones of phase graph-user's split, 2,312 columns; (c)
+# AGNN's item side: every item x the warm ones, k = agnn_knn_k + 1.
+KNN_SHAPES = (("a", 54_034, 216_136, BX_CONTENT, 5),
+              ("b", 18_422, 73_685, BX_USER_CONTENT, 5),
+              ("c", 270_170, 216_136, BX_CONTENT, 11))
+KNN_INT_MAX = 3  # integer tables in [-3, 3]: every d=2312 sum is exact
+# Phase content: the content-feature cold models through the CLI on phase
+# train's split and MF bus, one epoch each (500 in the reference's
+# configs; cut for the run's time limit); AMR reads VBPR's bus.
+CONTENT_RUNS = (
+    ("KNN", 1, ()),
+    ("AGNN", 1, ()),
+    ("VBPR", 1, ()),
+    ("AMR", 1, ()),
+    ("MTPR", 1, ()),
+    ("MetaEmbedding", 1, ()),
+    ("LARA", 1, ()),
+    ("CLCRec", 1, ()),
+    ("GoRec", 1, ()),
+)
+# the content searches each model makes: KNN the cold side against the
+# warm one, AGNN both sides against their warm rows
+KNN_CALLS = {"KNN": 1, "AGNN": 2}
 HBM_BYTES_S = 3.35e12  # the H100 SXM's HBM3 rate
 # fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
 # float64 (TF32 leaves ~1e-3)
@@ -1093,6 +1145,192 @@ def cold_run(device, root, ds="bx_synth", runs=COLD_RUNS, d=D, bs=4096,
     return launches, per_model
 
 
+# ------------------------------------------------------------- content KNN
+def knn_tables(device, q, v, d, seed, integer):
+    """(queries, values) on ``device``: integers in [-KNN_INT_MAX,
+    KNN_INT_MAX] (exact products) or N(0,1), drawn on the host."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        m = KNN_INT_MAX
+        qs = rng.integers(-m, m + 1, (q, d), dtype=np.int8)
+        vs = rng.integers(-m, m + 1, (v, d), dtype=np.int8)
+    else:
+        qs = rng.standard_normal((q, d), dtype=np.float32)
+        vs = rng.standard_normal((v, d), dtype=np.float32)
+    return (torch.as_tensor(qs, device=device).float(),
+            torch.as_tensor(vs, device=device).float())
+
+
+def timed_s(fn, device):
+    """(result, seconds) of one call, the card synchronised around it."""
+    _sync(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t
+
+
+def knn_library(queries, values, k, chunk=4096):
+    """The library yardstick: per chunk of queries one TF32-off
+    ``torch.mm`` and ``torch.topk(k + 1)``."""
+    out = []
+    for s in range(0, queries.shape[0], chunk):
+        out.append(torch.topk(exact_scores(queries[s:s + chunk], values),
+                              k + 1, dim=1)[1])
+    return out
+
+
+def knn_sweeps(queries, values, device):
+    """The retrieval kernel alone over every query chunk of the kernel
+    route (fused_sweep, and merge_parts where the sweep splits), against
+    operands padded once: device seconds from CUDA events."""
+    excl = torch.zeros(values.shape[0], dtype=torch.bool,
+                       device=values.device)
+    items_t, excl_row = pad_items(values, excl)
+
+    def run():
+        for s in range(0, queries.shape[0], USER_CHUNK):
+            fused_sweep(queries[s:s + USER_CHUNK].contiguous(), items_t,
+                        excl_row)
+
+    return erk.time_ms(run, 1, device, repeats=1) / 1e3
+
+
+def knn_shape(device, tag, q, v, d, k, seed=0):
+    """One shape of phase knn: the entry point (``knn_inner_product``, the
+    kernel route on the card) against the plain route, on integer tables
+    (ids and values bit-equal; shapes a and b) and on N(0,1) tables (ids
+    equal but at near-ties), then timed warm on the N(0,1) tables."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    want = knn_mod.knn_route(v, k, device)
+    if cuda and want != "kernel":
+        raise AssertionError(f"knn {tag}: route {want} on the card")
+    # on the CPU (a rehearsal) the entry point takes the plain route: call
+    # the kernel route, whose sweep is the kernel's plain version there
+    entry = knn_mod.knn_inner_product if cuda else knn_mod.knn_via_kernel
+    out = {"d": d, "queries": q, "values": v, "k": k}
+    for integer in ((True, False) if tag in ("a", "b") else (False,)):
+        qs, vs = knn_tables(device, q, v, d, seed, integer)
+        reset_launches()
+        rows0 = ret.apply_exact_fallback.rows
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        (ks, ki), secs = timed_s(lambda: entry(qs, vs, k, device=device),
+                                 device)
+        launches = launch_counts()
+        fb = ret.apply_exact_fallback.rows - rows0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda \
+            else 0.0
+        (ps, pi), plain_s = timed_s(lambda: knn_mod.knn_plain(
+            qs, vs, k, device=device), device)
+        if cuda and not launches["fused_sweep"] > 0:
+            raise AssertionError(f"knn {tag}: the kernel route launched "
+                                 f"nothing: {launches}")
+        kind = "integer" if integer else "N(0,1)"
+        if integer:
+            # the sweep of the first chunk against its plain version
+            excl = torch.zeros(v, dtype=torch.bool, device=device)
+            items_t, excl_row = pad_items(vs, excl)
+            chunk = qs[:USER_CHUNK].contiguous()
+            hold_equal(f"knn {tag} fused_sweep d={d}",
+                       fused_sweep(chunk, items_t, excl_row),
+                       fused_sweep_reference(chunk, items_t, excl_row))
+            del items_t, excl_row
+            if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
+                bad = int((ki != pi).any(axis=1).sum())
+                raise AssertionError(f"knn {tag} integer tables: {bad} rows "
+                                     "differ from the plain route")
+            note = ("ids and values bit-equal to the plain route, the "
+                    f"first {min(q, USER_CHUNK)} queries' sweep bit-equal "
+                    "to its plain version")
+        else:
+            rows, equal = compare_lists(qs, vs, np.arange(q), ki, pi)
+            note = (f"rows id-equal to the plain route {equal}/{rows} "
+                    f"(others near-ties), max value gap "
+                    f"{float(np.abs(ks - ps).max()):.3e}")
+            out.update(kernel_s=secs, plain_s=plain_s, launches=launches,
+                       fallback_rows=fb, peak_gib=peak,
+                       max_abs_err=float(np.abs(ks - ps).max()))
+        log(f"  knn {tag} {q} x {v} d={d} k={k}, {kind} tables: {note}; "
+            f"route {'kernel' if cuda else 'kernel (plain sweep)'}, "
+            f"{secs:.3f} s (plain route "
+            f"{plain_s:.3f} s); launches "
+            f"{ {n: c for n, c in launches.items() if c} }; exact fallback "
+            f"{fb} rows; peak card memory {peak:.2f} GiB")
+    # timed once warm: the entry point, the kernel alone, the library
+    _, out["kernel_s"] = timed_s(lambda: entry(qs, vs, k, device=device),
+                                 device)
+    out["sweep_s"] = knn_sweeps(qs, vs, device)
+    knn_library(qs, vs, k)
+    _, out["library_s"] = timed_s(lambda: knn_library(qs, vs, k), device)
+    # each table read once, the (Q, k) scores and ids written once
+    bound_ms, out["bound_by"] = sweep_bound(2.0 * q * v * d,
+                                            4.0 * (q + v) * d + 8.0 * q * k)
+    out["bound_s"] = bound_ms / 1e3
+    log(f"  knn {tag} timed warm: entry point {out['kernel_s']:.3f} s, the "
+        f"kernel's sweeps alone {out['sweep_s']:.3f} s, plain route {out['plain_s']:.3f} s, "
+        f"library (mm + topk({k + 1})) {out['library_s']:.3f} s, bound "
+        f"{out['bound_s']:.3f} s ({out['bound_by']})")
+    return out
+
+
+def knn_run(device, shapes=KNN_SHAPES, seed=0):
+    """Phase knn: each shape of ``shapes`` through ``knn_shape``. Returns
+    {"shapes": {tag: numbers}, "launches": the kernel route's launches}."""
+    out, launches = {}, {"fused_sweep": 0, "merge_parts": 0}
+    for tag, q, v, d, k in shapes:
+        out[tag] = knn_shape(device, tag, q, v, d, k, seed)
+        for name in launches:
+            launches[name] += out[tag]["launches"][name]
+    return {"shapes": out, "launches": launches}
+
+
+# ------------------------------------------------- the content-feature models
+def knn_events(evs) -> list:
+    """(route, queries, values, d, k) of the run's content searches."""
+    return [(e["route"], e["queries"], e["values"], e["d"], e["k"])
+            for e in evs if e["event"] == "knn_route"]
+
+
+def content_run(device, root, ds="bx_synth", runs=CONTENT_RUNS, d=D,
+                bs=4096, topN=(10, 20), seed=0, steps=STEP_CHECK):
+    """Phase content: each content-feature cold model through the CLI on
+    phase train's split and MF bus (AMR on VBPR's bus), checked by
+    ``graph_cli`` (launches, fallback, peak memory, each epoch's split,
+    lists held to the plain path, each split's route), its content
+    searches on the JAX package's route; then VBPR's and MetaEmbedding's
+    steps on the card against the CPU. Returns {model: launches}."""
+    device = torch.device(device)
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    expected = expected_routes(data, "item", bs, max(topN), device)
+    per_model = {}
+    for model, epochs, flags in runs:
+        r = graph_cli(device, root, ds, model, epochs, flags, data, d, bs,
+                      seed, topN, expected=expected)
+        calls = r["knn"]
+        log(f"    knn routes {calls}")
+        if len(calls) != KNN_CALLS.get(model, 0) or any(
+                route != knn_mod.knn_route(v, k, device)
+                for route, _, v, _, k in calls):
+            raise AssertionError(f"{model}: content searches {calls}")
+        per_model[model] = r["launches"]
+    for model in ("VBPR", "MetaEmbedding"):
+        t = time.perf_counter()
+        loss_err, gap, table_err = cold_step_parity(device, data, root,
+                                                    model, d, bs, steps,
+                                                    seed)
+        log(f"  {model}: {steps} steps {device.type} vs cpu "
+            f"({time.perf_counter() - t:.2f} s): loss max rel err "
+            f"{loss_err:.3e}, weights max relative norm gap {gap:.3e}, eval "
+            f"tables of one set of weights max rel err {table_err:.3e}")
+        if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
+                and table_err <= STEP_LOSS_RTOL):
+            raise AssertionError(f"{model}: the card's steps disagree with "
+                                 "the CPU's")
+    return per_model
+
+
 def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
                content_dim=ML_CONTENT, d=D, epochs=5, bs=4096, seed=0,
                topN=(10, 20)):
@@ -1228,7 +1466,7 @@ def graph_cli(device, root, ds, model, epochs, flags, data, d=D, bs=4096,
         kernel_route = ["kernel"] in expected.values()
     if cuda and kernel_route and not launches["fused_sweep"] > 0:
         raise AssertionError(f"{model} left the kernel unlaunched")
-    return {"launches": launches,
+    return {"launches": launches, "knn": knn_events(evs),
             "epochs": [e for e in evs if e["event"] == "epoch"]}
 
 
@@ -2015,10 +2253,12 @@ def main() -> int:
     ]
     exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
+    knn = run_phase("knn", knn_run, device)
     with tempfile.TemporaryDirectory() as root:
         run_phase("train", train_run, device, *BX, root=root,
                   content_dim=BX_CONTENT)
         bf16_launches, _ = run_phase("cold", cold_run, device, root)
+        content = run_phase("content", content_run, device, root)
         graph, _ = run_phase("graph", graph_run, device, root)
         graph_user = run_phase("graph-user", graph_user_run, device, root,
                                *BX)
@@ -2033,6 +2273,19 @@ def main() -> int:
         f"{sum(r['fused_sweep'] for r in graph.values())}, graph-user "
         f"{sum(r['fused_sweep'] for r in graph_user.values())}, graph-ml "
         f"{sum(r['fused_sweep'] for r in graph_ml.values())})")
+    content_launches = {name: sum(r[name] for r in content.values())
+                        for name in ("fused_sweep", "merge_parts")}
+    log(f"  knn phase: {knn['launches']} launches; content phase: "
+        f"{content_launches} launches")
+    knn_sweeps_line = [{
+        "shape": tag, "queries": r["queries"], "values": r["values"],
+        "d": r["d"], "k": r["k"], "launches": r["launches"]["fused_sweep"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["sweep_s"] * 1e3,
+        "call_ms": r["kernel_s"] * 1e3, "plain_ms": r["plain_s"] * 1e3,
+        "bound_ms": r["bound_s"] * 1e3, "bound_by": r["bound_by"],
+        "library_ms": r["library_s"] * 1e3,
+    } for tag, r in knn["shapes"].items()]
     variants = run_phase("variants", variants_run, device)
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
@@ -2061,7 +2314,9 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
-        "launches": launches["fused_sweep"] + graph_launches["fused_sweep"],
+        "launches": (launches["fused_sweep"] + graph_launches["fused_sweep"]
+                     + knn["launches"]["fused_sweep"]
+                     + content_launches["fused_sweep"]),
         "max_abs_err": max([e["max_abs_err"] for e in errs]
                            + [exact["fused_sweep"]]),
         "ms": t["ms"],
@@ -2069,6 +2324,7 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+        "knn_sweeps": knn_sweeps_line,
     }, {
         "name": "fused_sweep_bf16",
         "route": "cuda",
@@ -2084,7 +2340,9 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
-        "launches": launches["merge_parts"] + graph_launches["merge_parts"],
+        "launches": (launches["merge_parts"] + graph_launches["merge_parts"]
+                     + knn["launches"]["merge_parts"]
+                     + content_launches["merge_parts"]),
         "max_abs_err": max(errs[1]["merge_err"], exact["merge_parts"]),
         **{k: tm[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")},

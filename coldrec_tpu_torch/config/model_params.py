@@ -2,17 +2,62 @@
 ``coldrec_tpu/config/model_params.py``; reference config/model_param.py).
 
 MF, DeepMusic, DUIF, LightGCN and NGCF add no flags of their own (the
-graph backbones' ``--layers`` is a common flag, default 2). Every model of the JAX
-package that is not ported yet is refused with the ROADMAP queue item that
-brings it to the port.
+graph backbones' ``--layers`` is a common flag, default 2). An entry's
+``"_overrides"`` sets common flags' defaults for that model (AGNN's lr, bs,
+emb_size and epochs, as in the reference's ``set_defaults``). Boolean flags
+take "true"/"false" (or no value: true); the (lr, wd) pairs of VBPR, AMR and
+MTPR take "0.05,0" or "[0.05, 0]". Every model of the JAX package that is
+not ported yet is refused with the ROADMAP queue item that brings it to the
+port.
 """
 from __future__ import annotations
 
 import argparse
+import ast
 from typing import Dict
 
 MODEL_PARAM_REGISTRY: Dict[str, dict] = {
     "MF": {},
+    "KNN": {"knn_num": 5},
+    "AGNN": {
+        "_overrides": dict(lr=5e-4, bs=4096, emb_size=64, epochs=20),
+        "agnn_knn_k": 10,
+        "agnn_dropout": 0.5,
+        "agnn_rank_weight": 1.0,
+        "agnn_align_weight": 1.0,
+        "agnn_vae_lambda": 1.0,
+        "agnn_attention_size": 50,
+        "agnn_clip_norm": 5.0,
+        "agnn_finetune": False,
+        "agnn_no_backbone": False,
+        "agnn_eval_chunk": 512,
+    },
+    "VBPR": {"p_emb": [0.05, 0.0], "p_ctx": [0.05, 0.01]},
+    "AMR": {
+        "p_emb": [0.05, 0.0],
+        "p_ctx": [0.05, 0.01],
+        "eps": 0.1,
+        "lmd": 1.0,
+    },
+    "MTPR": {
+        "p_emb": [0.05, 0.0],
+        "p_ctx": [0.05, 0.01],
+        "p_proj": [0.05, 0.01],
+    },
+    "MetaEmbedding": {"alpha": 0.5},
+    "LARA": {},
+    "CLCRec": {
+        "num_neg": 128,
+        "temp_value": 2.0,
+        "lr_lambda": 0.5,
+        "num_sample": 0.5,
+    },
+    "GoRec": {
+        "pre_cluster_num": 50,
+        "uni_coeff": 5.0,
+        "kl_coeff": 10.0,
+        "dropout": 0.0,
+    },
     "DropoutNet": {
         "n_dropout": 0.5,
         "dropoutnet_hidden1": 200,
@@ -50,12 +95,8 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
 }
 
 # ROADMAP.md, Queue 1: the item that ports each model of the JAX package
-_QUEUE_ITEM = {
-    **dict.fromkeys(("KNN", "AGNN"), 5),
-    **dict.fromkeys(("VBPR", "AMR", "MTPR", "LARA", "MetaEmbedding",
-                     "CLCRec", "GoRec", "CCFCRec", "M2VAE", "CGRC", "FSGNN",
-                     "USIM"), 6),
-}
+_QUEUE_ITEM = dict.fromkeys(("CCFCRec", "M2VAE", "CGRC", "FSGNN", "USIM"),
+                            6)
 
 
 def require_ported(model: str) -> None:
@@ -72,12 +113,58 @@ def require_ported(model: str) -> None:
 
 
 def registry_defaults(model: str) -> dict:
-    """The model's own flags and defaults, for ``default_args``."""
+    """The model's own flags and its common-flag overrides, with their
+    defaults, for ``default_args``."""
     require_ported(model)
-    return dict(MODEL_PARAM_REGISTRY[model])
+    spec = dict(MODEL_PARAM_REGISTRY[model])
+    out = dict(spec.pop("_overrides", {}))
+    out.update(spec)
+    return out
 
 
 def add_model_params(model: str, parser: argparse.ArgumentParser):
-    for name, default in registry_defaults(model).items():
-        parser.add_argument(f"--{name}", type=type(default), default=default)
+    require_ported(model)
+    spec = dict(MODEL_PARAM_REGISTRY[model])
+    overrides = spec.pop("_overrides", None)
+    if overrides:
+        parser.set_defaults(**overrides)
+    for name, default in spec.items():
+        if isinstance(default, bool):
+            parser.add_argument(f"--{name}", type=_str2bool, nargs="?",
+                                const=True, default=default)
+        elif isinstance(default, list):
+            parser.add_argument(f"--{name}", type=_float_pair,
+                                default=default)
+        else:
+            parser.add_argument(f"--{name}", type=type(default),
+                                default=default)
     return parser
+
+
+def _str2bool(v):
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in ("1", "true", "t", "yes", "y", "on"):
+        return True
+    if s in ("0", "false", "f", "no", "n", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean value, got {v!r}")
+
+
+def _float_pair(v):
+    """An (lr, wd) optimizer pair from "0.05,0" or "[0.05, 0]"
+    (model_param.py:17-33)."""
+    if isinstance(v, (list, tuple)):
+        values = list(v)
+    else:
+        s = str(v).strip()
+        try:
+            parsed = ast.literal_eval(s)
+        except (SyntaxError, ValueError):
+            parsed = s.split(",")
+        values = list(parsed) if isinstance(parsed, (list, tuple)) else [
+            parsed]
+    if len(values) != 2:
+        raise argparse.ArgumentTypeError(f"expected two floats, got {v!r}")
+    return [float(values[0]), float(values[1])]

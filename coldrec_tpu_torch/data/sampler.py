@@ -1,6 +1,8 @@
 """Host-side BPR batches with static shapes (the port's copy of ``_pad``,
-``sample_negatives`` and ``pairwise_batches`` from
-``coldrec_tpu/data/sampler.py``; reference ColdRec util/utils.py:123-157).
+``sample_negatives``, ``pairwise_batches``,
+``pairwise_batches_with_neg_users`` (LARA), ``warm_item_pool`` and
+``pairwise_batches_multi_neg`` (CLCRec) from ``coldrec_tpu/data/sampler.py``;
+reference ColdRec util/utils.py:123-233).
 
   * every batch has exactly ``batch_size`` rows; the final partial batch is
     padded and carries a float ``weight`` vector (1.0 real / 0.0 pad), so
@@ -115,4 +117,96 @@ def pairwise_batches(
             "pos_item": _pad(chunk[:, 1].astype(np.int32), batch_size),
             "neg_item": _pad(negs.astype(np.int32), batch_size),
             "weight": _pad(w, batch_size, fill=0.0),
+        }
+
+
+def pairwise_batches_with_neg_users(
+    data: ColdStartDataset,
+    batch_size: int,
+    rng: np.random.Generator,
+    sampler: str = "native",
+) -> Iterator[Dict[str, np.ndarray]]:
+    """LARA batches (utils.py:160-188): each positive (u, i) with a
+    negative item for the user and a negative user for the item (a seen
+    user who did not rate it in training, rejection-sampled with numpy).
+    Yields {user, pos_item, neg_item, neg_user, weight}."""
+    # sorted (item, user) keys of the training pairs: is (u, i) rated?
+    tp = data.train_pairs
+    order = np.lexsort((tp[:, 0], tp[:, 1]))
+    counts = np.bincount(tp[:, 1], minlength=data.item_num)
+    item_keys = (
+        np.repeat(np.arange(data.item_num, dtype=np.int64), counts)
+        * (data.user_num + 1)
+        + tp[order, 0]
+    )
+
+    def user_rated_item(users_q, items_q):
+        if item_keys.size == 0:
+            return np.zeros(users_q.shape, dtype=bool)
+        keys = items_q * (data.user_num + 1) + users_q
+        pos = np.minimum(np.searchsorted(item_keys, keys),
+                         item_keys.shape[0] - 1)
+        return item_keys[pos] == keys
+
+    perm = rng.permutation(data.n_train)
+    pairs = data.train_pairs[perm]
+    for start in range(0, data.n_train, batch_size):
+        chunk = pairs[start: start + batch_size]
+        users, items = chunk[:, 0], chunk[:, 1]
+        neg_items = sample_negatives(data, users, rng, sampler=sampler)
+        neg_users = rng.integers(0, data.n_seen_users, size=users.shape[0])
+        bad = user_rated_item(neg_users, items)
+        while bad.any():
+            idx = np.where(bad)[0]
+            neg_users[idx] = rng.integers(0, data.n_seen_users,
+                                          size=idx.shape[0])
+            bad[idx] = user_rated_item(neg_users[idx], items[idx])
+        n = chunk.shape[0]
+        yield {
+            "user": _pad(users.astype(np.int32), batch_size),
+            "pos_item": _pad(items.astype(np.int32), batch_size),
+            "neg_item": _pad(neg_items.astype(np.int32), batch_size),
+            "neg_user": _pad(neg_users.astype(np.int32), batch_size),
+            "weight": _pad(np.ones(n, np.float32), batch_size, fill=0.0),
+        }
+
+
+def warm_item_pool(data: ColdStartDataset) -> np.ndarray:
+    """Seen items minus cold items: the CLCRec / CCFCRec negative pool
+    (utils.py:196-209)."""
+    cold = np.zeros(data.n_seen_items, dtype=bool)
+    cold[data.mapped_cold_item_idx[
+        data.mapped_cold_item_idx < data.n_seen_items]] = True
+    pool = np.where(~cold)[0].astype(np.int64)
+    if pool.size == 0:
+        raise ValueError(
+            "warm-item negative pool is empty; check cold_item split")
+    return pool
+
+
+def pairwise_batches_multi_neg(
+    data: ColdStartDataset,
+    batch_size: int,
+    rng: np.random.Generator,
+    n_negs: int,
+    pool: Optional[np.ndarray] = None,
+    sampler: str = "native",
+) -> Iterator[Dict[str, np.ndarray]]:
+    """CLCRec batches (utils.py:191-233): each positive with ``n_negs``
+    negatives from ``pool`` (the warm items), rejected against the user's
+    training positives. Yields {user, pos_item, neg_items (B, n_negs),
+    weight}."""
+    perm = rng.permutation(data.n_train)
+    pairs = data.train_pairs[perm]
+    for start in range(0, data.n_train, batch_size):
+        chunk = pairs[start: start + batch_size]
+        users = chunk[:, 0]
+        negs = sample_negatives(data, users, rng, n_negs=n_negs, pool=pool,
+                                sampler=sampler)
+        n = chunk.shape[0]
+        yield {
+            "user": _pad(users.astype(np.int32), batch_size),
+            "pos_item": _pad(chunk[:, 1].astype(np.int32), batch_size),
+            "neg_items": _pad(negs.astype(np.int32), batch_size),
+            "weight": _pad(np.ones(n, np.float32), batch_size, fill=0.0),
         }

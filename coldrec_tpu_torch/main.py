@@ -9,10 +9,12 @@ multi-run seed loop (run r uses seed=r when runs>1, else --seed,
 main.py:163), mean±std aggregation per topN x {all,cold,warm} x
 {hit,precision,recall,ndcg}, seconds per completed epoch, and the text+JSON
 result file block (main.py:207-301), appended or overwritten. Ported: MF,
-the graph backbones LightGCN, NGCF, SimGCL, XSimGCL and NCL, and the
-cold-start models DropoutNet, GAR, ALDI, DeepMusic, DUIF and Heater, which
-read the backbone's tables from the embedding bus (``--backbone MF`` or a
-graph backbone: run it first); ``models/__init__.py`` names the ROADMAP
+the graph backbones LightGCN, NGCF, SimGCL, XSimGCL and NCL, the
+cold-start models DropoutNet, GAR, ALDI, DeepMusic, DUIF, Heater, AGNN,
+VBPR, MetaEmbedding, LARA and GoRec, which read the backbone's tables from
+the embedding bus (``--backbone MF`` or a graph backbone: run it first),
+AMR, which reads VBPR's bus (run VBPR first), and KNN, MTPR and CLCRec,
+which train their own tables; ``models/__init__.py`` names the ROADMAP
 item of the others.
 """
 from __future__ import annotations

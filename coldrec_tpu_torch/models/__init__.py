@@ -3,17 +3,26 @@ reference: model/__init__.py AVAILABLE_MODELS). The ported models map to
 their trainers; the others raise ``ValueError`` naming the ROADMAP item
 that brings them."""
 from ..config.model_params import require_ported
+from .agnn import AGNNTrainer
 from .aldi import ALDITrainer
+from .amr import AMRTrainer
+from .clcrec import CLCRecTrainer
 from .deepmusic import DeepMusicTrainer
 from .dropoutnet import DropoutNetTrainer
 from .duif import DUIFTrainer
 from .gar import GARTrainer
+from .gorec import GoRecTrainer
 from .heater import HeaterTrainer
+from .knn import KNNTrainer
+from .lara import LARATrainer
 from .lightgcn import LightGCNTrainer
+from .metaembedding import MetaEmbeddingTrainer
 from .mf import MF, MFTrainer
+from .mtpr import MTPRTrainer
 from .ncl import NCLTrainer
 from .ngcf import NGCFTrainer
 from .simgcl import SimGCLTrainer
+from .vbpr import VBPRTrainer
 from .xsimgcl import XSimGCLTrainer
 
 TRAINERS = {
@@ -29,6 +38,15 @@ TRAINERS = {
     "SimGCL": SimGCLTrainer,
     "XSimGCL": XSimGCLTrainer,
     "NCL": NCLTrainer,
+    "KNN": KNNTrainer,
+    "AGNN": AGNNTrainer,
+    "VBPR": VBPRTrainer,
+    "AMR": AMRTrainer,
+    "MTPR": MTPRTrainer,
+    "MetaEmbedding": MetaEmbeddingTrainer,
+    "LARA": LARATrainer,
+    "CLCRec": CLCRecTrainer,
+    "GoRec": GoRecTrainer,
 }
 
 __all__ = ["MF", "MFTrainer", "TRAINERS", "model_factory"]

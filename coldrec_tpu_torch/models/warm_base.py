@@ -45,6 +45,30 @@ from ..runtime.eval import exact_scores
 from ..runtime.trainer import BaseColdStartTrainer
 
 
+class OptimizerGroups:
+    """Several torch optimizers stepped as one, each over its own
+    parameters (optax's ``multi_transform``: e.g. VBPR's Adagrad on the
+    tables and Adam on the content projection)."""
+
+    def __init__(self, *optimizers: torch.optim.Optimizer):
+        self.optimizers = optimizers
+
+    def zero_grad(self, set_to_none: bool = True):
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        for opt in self.optimizers:
+            opt.step()
+
+    def state_dict(self) -> list:
+        return [opt.state_dict() for opt in self.optimizers]
+
+    def load_state_dict(self, states: list):
+        for opt, state in zip(self.optimizers, states):
+            opt.load_state_dict(state)
+
+
 class WarmBackboneTrainer(BaseColdStartTrainer):
     """Subclass contract: set ``self.model`` (an ``nn.Module``), implement
     ``loss(batch) -> scalar tensor`` and, where the module has none,
@@ -52,11 +76,12 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
 
     model: torch.nn.Module
 
-    def setup_optimizer(self, param_groups=None):
+    def setup_optimizer(self, param_groups=None, optimizer=None):
         """Adam over ``param_groups`` (torch's parameter groups, each with
         its own ``weight_decay``: the gradient plus decay times the weight,
         as optax's ``add_decayed_weights`` before Adam) or over every
-        parameter of the model."""
+        parameter of the model that takes a gradient; or ``optimizer``
+        (e.g. an :class:`OptimizerGroups`)."""
         if str(getattr(self.args, "mesh", "") or ""):
             raise NotImplementedError(
                 "--mesh: the port trains on one device; mesh training comes "
@@ -65,9 +90,11 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             raise NotImplementedError(
                 "--fused_steps > 1 is not in the port (ROADMAP.md Queue 1, "
                 "item 8)")
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters() if param_groups is None else param_groups,
-            lr=self.lr)
+        if optimizer is None:
+            optimizer = torch.optim.Adam(
+                [p for p in self.model.parameters() if p.requires_grad]
+                if param_groups is None else param_groups, lr=self.lr)
+        self.optimizer = optimizer
         self.refresh_tables()
         self.save()
         self.epoch_stats: List[Dict] = []

@@ -387,17 +387,28 @@ def retrieval_topk(
     ie = torch.as_tensor(item_emb, dtype=torch.float32, device=dev)
     rated = torch.as_tensor(rated_pad, device=dev).long()
     excl = torch.as_tensor(excluded, device=dev).bool()
-    n_users = ue.shape[0]
     if k + rated.shape[1] > CANDIDATES:
         raise ValueError(
             f"k + rated width = {k + rated.shape[1]} exceeds the kernel's "
             f"{CANDIDATES} candidates; use masked_topk"
         )
+    kind = torch.bfloat16 if bf16 else torch.float32
+    items_t, excl_row = pad_items(ie.to(kind), excl)
+    return sweep_topk(ue, ie, items_t, excl_row, rated, excl, k, bf16)
+
+
+def sweep_topk(ue, ie, items_t, excl_row, rated, excl, k: int,
+               bf16: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The sweep of ``retrieval_topk`` against item operands already
+    prepared by :func:`pad_items` (of ``ie`` in the sweep's type), so that
+    a caller sweeping many user sets against one table pads and transposes
+    it once. ``ue``/``ie`` are fp32 tensors on one device, ``rated`` (U, R)
+    int64 and ``excl`` (I,) bool beside them; returns numpy (vals (U, k),
+    ids (U, k)), exact and in (-value, id) order."""
+    n_users = ue.shape[0]
     if n_users == 0:
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-    kind = torch.bfloat16 if bf16 else torch.float32
-    uk = ue.to(kind)
-    items_t, excl_row = pad_items(ie.to(kind), excl)
+    uk = ue.to(items_t.dtype)
     vals_l, ids_l, sus_l = [], [], []
     for s in range(0, n_users, USER_CHUNK):
         e = min(n_users, s + USER_CHUNK)
@@ -411,7 +422,7 @@ def retrieval_topk(
     )
 
     def exact_chunk(rows_pad):
-        rows_d = torch.as_tensor(rows_pad, device=dev)
+        rows_d = torch.as_tensor(rows_pad, device=ue.device)
         return _exact_rows(ue[rows_d], ie, rated[rows_d], excl, k, bf16)
 
     apply_exact_fallback(vals, ids, np.concatenate(sus_l), exact_chunk)

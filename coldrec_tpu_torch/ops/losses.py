@@ -1,7 +1,8 @@
 """BPR, L2, MSE and contrastive losses on tensors, weighted for padding
 (the port's copy of ``bpr_loss``, ``l2_reg_loss``, ``mse_loss``,
 ``_wmean``, ``_normalize``, ``unique_padded`` and ``info_nce_masked`` from
-``coldrec_tpu/ops/losses.py``; reference ColdRec util/utils.py:25-76).
+``coldrec_tpu/ops/losses.py``, and the BCE-with-logits that MetaEmbedding
+and LARA write inline there; reference ColdRec util/utils.py:25-76).
 
 Every batch has a fixed row count; the last batch of an epoch is padded and
 carries ``weight`` (1.0 real / 0.0 pad), so the weighted mean equals the
@@ -65,6 +66,14 @@ def mse_loss(
         return sq.mean()
     w = weight.reshape((-1,) + (1,) * (sq.dim() - 1))
     return (sq * w).sum() / (w.sum() * sq.shape[-1]).clamp_min(1.0)
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross-entropy of ``logits`` against ``targets``,
+    in the stable form max(x, 0) - x * t + log1p(exp(-|x|))."""
+    return (logits.clamp_min(0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
 
 
 def _normalize(x: torch.Tensor, dim: int = -1,

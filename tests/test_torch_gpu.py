@@ -709,3 +709,47 @@ def test_graph_steps_on_card_match_cpu(cuda, model):
                     trainers[1].model.parameters()):
         assert float((p.detach().cpu() - q.detach()).abs().max()) <= \
             2 * 1e-3 * 5
+
+
+# content KNN at book-crossing's content widths: the item content (416, the
+# user tile resident) and the user content (2,312, the user tile staged)
+@pytest.mark.parametrize("d", [416, 2312])
+def test_knn_kernel_route_matches_plain_on_integer_tables(cuda, d):
+    """``knn_inner_product`` takes the kernel route on the card: on integer
+    tables (exact products) its ids and values equal the plain route's bit
+    for bit, all-zero query rows included (every score ties)."""
+    from coldrec_tpu_torch.ops import knn as tknn
+
+    rng = np.random.default_rng(d)
+    queries = rng.integers(-3, 4, (3000, d)).astype(np.float32)
+    values = rng.integers(-3, 4, (9000, d)).astype(np.float32)
+    queries[:4] = 0.0
+    assert tknn.knn_route(len(values), 5, cuda) == "kernel"
+    before = tret.fused_sweep.launches
+    s, i = tknn.knn_inner_product(queries, values, 5, chunk=1024,
+                                  device=cuda)
+    assert tret.fused_sweep.launches > before
+    ps, pi = tknn.knn_plain(queries, values, 5, chunk=1024, device=cuda)
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_array_equal(s, ps)
+    np.testing.assert_array_equal(i[:4], np.tile(np.arange(5), (4, 1)))
+
+
+def test_kernel_at_d2312_matches_plain(cuda):
+    """The sweep at d = 2,312 (the staged user tile), split into parts and
+    merged, bit for bit against ``fused_sweep_reference`` on integer
+    tables, and on N(0,1) ones within 1e-2 (scores reach ~250 at this
+    depth; the two fp32 sum orders part by well under 1e-2)."""
+    users, items_t, excl_row = _int_sweep_inputs(cuda, 300, 20_000, 2312, 7)
+    got = tret.fused_sweep(users, items_t, excl_row)
+    ref = tret.fused_sweep_reference(users, items_t, excl_row)
+    assert all(_same(g, r) for g, r in zip(got, ref))
+    rng = np.random.default_rng(8)
+    users = torch.as_tensor(rng.standard_normal((300, 2312),
+                                                dtype=np.float32), device=cuda)
+    cv, _, gh = tret.fused_sweep(users, items_t.normal_(generator=torch.
+                                                        Generator(cuda)),
+                                 excl_row)
+    rv, _, rg = tret.fused_sweep_reference(users, items_t, excl_row)
+    torch.testing.assert_close(cv, rv, rtol=0, atol=1e-2)
+    torch.testing.assert_close(gh, rg, rtol=0, atol=1e-2)

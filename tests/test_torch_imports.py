@@ -419,3 +419,85 @@ def test_chip_smoke_graph_phases_rehearse_on_cpu_without_jax(tmp_path):
     fallback = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("  SimGCL (item cold)")]
     assert fallback and "exact fallback 0 rows" not in fallback[0]
+
+
+CONTENT_MODULES = ("coldrec_tpu_torch.ops.knn",
+                   "coldrec_tpu_torch.models.knn",
+                   "coldrec_tpu_torch.models.agnn",
+                   "coldrec_tpu_torch.models.vbpr",
+                   "coldrec_tpu_torch.models.amr",
+                   "coldrec_tpu_torch.models.mtpr",
+                   "coldrec_tpu_torch.models.metaembedding",
+                   "coldrec_tpu_torch.models.lara",
+                   "coldrec_tpu_torch.models.clcrec",
+                   "coldrec_tpu_torch.models.gorec")
+CONTENT_MODELS = ("KNN", "AGNN", "VBPR", "AMR", "MTPR", "MetaEmbedding",
+                  "LARA", "CLCRec", "GoRec")
+
+
+def test_content_modules_import_without_jax(tmp_path):
+    """The content slice's modules are among the files checked above and
+    import in a process where jax and coldrec_tpu are blocked."""
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in CONTENT_MODULES:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = "import importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in CONTENT_MODULES) + (
+        "from coldrec_tpu_torch.models import TRAINERS\n"
+        f"assert set({CONTENT_MODELS!r}) <= set(TRAINERS)\n"
+        "print('CONTENT IMPORTS OK')\n")
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CONTENT IMPORTS OK" in proc.stdout
+
+
+@pytest.mark.parametrize("model", CONTENT_MODELS)
+def test_content_trainers_default_to_the_card(model, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run on it")
+    from coldrec_tpu_torch.config import default_args
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+    from coldrec_tpu_torch.models import model_factory
+    from coldrec_tpu_torch.runtime.trainer import Config
+
+    data, _ = synthetic_dataset(n_users=30, n_items=40, n_inter=300)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model_factory(Config(default_args(model=model, emb_dir=str(tmp_path)),
+                             data))
+
+
+def test_chip_smoke_content_phases_rehearse_on_cpu_without_jax(tmp_path):
+    """Phases knn and content at a tiny size on the CPU, with jax and
+    coldrec_tpu blocked: knn through both routes on integer and N(0,1)
+    tables at three shapes (the kernel route's sweep is the kernel's plain
+    version here), then phase train's split and MF bus, and the nine
+    content models through the CLI on them (AMR on VBPR's bus), each
+    checked, and VBPR's and MetaEmbedding's steps device against CPU."""
+    code = (
+        "import tempfile\n"
+        "import chip_smoke as cs\n"
+        "for m in ('jax', 'coldrec_tpu'):\n"
+        "    assert sys.modules[m] is None\n"
+        "knn = cs.knn_run('cpu', shapes=(('a', 300, 900, 24, 5),\n"
+        "                                ('b', 100, 700, 40, 5),\n"
+        "                                ('c', 400, 900, 24, 11)))\n"
+        "assert set(knn['shapes']) == {'a', 'b', 'c'}, knn\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    cs.train_run('cpu', 300, 2000, 8000, d=16, bs=256, root=root,\n"
+        "                 content_dim=12)\n"
+        "    per_model = cs.content_run('cpu', root, d=16, bs=256, steps=3)\n"
+        "assert set(per_model) == {m for m, _, _ in cs.CONTENT_RUNS}\n"
+        "print('CONTENT OK')\n"
+    )
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CONTENT OK" in proc.stdout
+    for line in ("knn a 300 x 900 d=24 k=5", "integer tables: ids and "
+                 "values bit-equal", "knn c 400 x 900 d=24 k=11",
+                 "KNN (item cold): 1 epoch(s)", "AGNN (item cold): 1 epoch(s)",
+                 "AMR (item cold): 1 epoch(s)",
+                 "GoRec (item cold): 1 epoch(s)", "knn routes",
+                 "VBPR: 3 steps cpu vs cpu",
+                 "MetaEmbedding: 3 steps cpu vs cpu",
+                 "id-equal to the plain path all"):
+        assert line in proc.stdout, line

@@ -259,8 +259,8 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,match", [
-    ("VBPR", "Queue 1, item 6"), ("AGNN", "Queue 1, item 5"),
-    ("KNN", "Queue 1, item 5"), ("CLCRec", "Queue 1, item 6"),
+    ("CCFCRec", "Queue 1, item 6"), ("M2VAE", "Queue 1, item 6"),
+    ("CGRC", "Queue 1, item 6"), ("FSGNN", "Queue 1, item 6"),
     ("NotAModel", "Invalid model name"),
 ])
 def test_models_other_than_mf_raise(datasets, model, match):
