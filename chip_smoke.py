@@ -6,7 +6,8 @@
 Phases, each printed with its seconds:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds the kernels from ``coldrec_tpu_torch/csrc``, and
-              the host compiler the negative sampler beside them;
+              the host compiler the negative sampler and FSGNN's PPR push
+              beside them;
   3. kernel   the retrieval kernel against its plain PyTorch version at
               d=64 on 2048 users x 270,170 items (kernel-bx) and 2048 x
               3,706 items (kernel-ml): the candidate values and ghosts agree
@@ -35,11 +36,14 @@ Phases, each printed with its seconds:
   knn         content KNN (``ops/knn.py``) at book-crossing's content
               widths: (a) 54,034 x 216,136 at d=416, k=5 (KNN, item cold),
               (b) 18,422 x 73,685 at d=2,312, k=5 (KNN, user cold), (c)
-              270,170 x 216,136 at d=416, k=11 (AGNN's item side); the
-              entry point (the kernel route on the card, launch counts
-              zeroed just before and read just after) against the plain
-              route: on integer tables in [-3, 3] (a, b) ids and values bit
-              for bit, and the first 2048 queries' sweep bit for bit
+              270,170 x 216,136 at d=416, k=11 (AGNN's item side), (d)
+              270,170 x 270,170 at d=416, k=16 and (e) 92,107 x 92,107 at
+              d=32, k=16, each table against itself (FSGNN's item and user
+              graphs); the entry point (the kernel route on the card,
+              launch counts zeroed just before and read just after)
+              against the plain route: on integer tables in [-3, 3] ids and
+              values bit for bit (a, b, e), and the first 2048 queries'
+              sweep bit for bit (a, b, d, e)
               against its plain version; on N(0,1) tables ids equal but
               at near-ties by the rule of phase 3; each shape then timed
               warm: the entry point, the kernel's sweeps alone (CUDA
@@ -48,7 +52,7 @@ Phases, each printed with its seconds:
               with its fallback rows and peak card memory;
   6. train    MF trained through the port's CLI entry
               (``coldrec_tpu_torch.main.run``) at book-crossing shape from a
-              split directory, d=64, bs 4096, lr 1e-3, reg 1e-4, 3 epochs,
+              split directory, d=64, bs 4096, lr 1e-3, reg 1e-4, 2 epochs,
               validated every epoch through the kernel (launch counts zeroed
               just before the run and read just after: ``fused_sweep`` must
               have launched for every validation and the test); the loss
@@ -64,7 +68,7 @@ Phases, each printed with its seconds:
               book-crossing's) and the MF bus stay for phase cold;
   cold        the cold-start models through the CLI on that split and bus
               (d=64, bs 4096): DropoutNet (hidden 200/100, n_dropout 0.5),
-              GAR and ALDI 2 epochs, DeepMusic, DUIF and Heater 1, each
+              GAR, ALDI, DeepMusic, DUIF and Heater 1 epoch each, each
               with its launch counts zeroed before and read after
               (``fused_sweep`` must have launched; ALDI's tables are 128
               wide), its time split, loss and test time logged, and the
@@ -84,10 +88,28 @@ Phases, each printed with its seconds:
               (``knn_route`` events) on the JAX package's route; then 20
               VBPR steps (Adagrad + Adam) and 20 MetaEmbedding steps
               (second order) on the card against the same steps on the
-              CPU, held as phase cold holds DropoutNet's;
+              CPU, held as phase cold holds DropoutNet's, VBPR's free run
+              in float64 on both devices and its float32 steps each from
+              the CPU's state (``SYNCED_STEPS``);
+  recon       the reconstruction-family models through the CLI on that
+              split and MF bus (d=64, bs 4096, one epoch each): CCFCRec
+              and M2VAE (``ccfcrec_batches``: 983,040 and 1,642,496
+              warm-pool negatives a step), CGRC (its evaluation rebuilds Ĝ
+              on the host after the top-20 users of every cold item by the
+              edge MLP) and FSGNN (PPR by the native push, its two cosine
+              kNN graphs, 270,170 items at d=416 and 92,107 users at the 32
+              fallback columns, through the kernel), each checked as in
+              phase content, with FSGNN's graph build and CGRC's
+              evaluations (top-k users, Ĝ rebuild, propagation) logged;
+              then 20 CCFCRec and 20 M2VAE steps on the card against the
+              CPU (M2VAE's normals drawn on the host), held as phase cold
+              holds DropoutNet's, CCFCRec's as VBPR's; CGRC's peak card memory over an
+              evaluation, and its top-k users of the first 2,048 cold items
+              held against the CPU's; FSGNN's step beside its SpMM applies
+              and GAT segment ops;
   graph       the graph backbones through the CLI on that split (d=64, bs
-              4096, --layers 2): LightGCN 2 epochs, NGCF, SimGCL, XSimGCL
-              and NCL 1 (BASELINE config 2's model and config 5's
+              4096, --layers 2), one epoch each: LightGCN, NGCF, SimGCL,
+              XSimGCL and NCL (BASELINE config 2's model and config 5's
               backbone), each with its launch counts zeroed before and read
               after (``fused_sweep`` must have launched), its time split,
               the exact fallback's rows and seconds during the run (SimGCL
@@ -110,14 +132,14 @@ Phases, each printed with its seconds:
               route;
   cold-signal a latent-factor split at MovieLens-1M shape (6,040 x 3,706 x
               1,000,209, item content 206 columns: a noisy view of the item
-              factors); MF, then DropoutNet on its bus, 5 epochs each
+              factors); MF, then DropoutNet on its bus, 2 epochs each
               through the CLI; the route of every split (kernel or plain
               sweep) must be the one the JAX package takes (a split with a
               user rated beyond the kernel's candidates goes plain); the
               cold-setting NDCG@20 of both and of random tables (chance)
               are logged side by side, not held to an order (a finding,
               PERF.md §6);
-  graph-ml    BASELINE config 2 at that shape: LightGCN 5 epochs through
+  graph-ml    BASELINE config 2 at that shape: LightGCN 2 epochs through
               the CLI on the latent split (every split on the JAX package's
               route: the plain sweep), then 20 LightGCN and 20 SimGCL steps
               on the card against the same steps on the CPU (same tables
@@ -189,6 +211,7 @@ from coldrec_tpu_torch.data.synthetic import (
     synthetic_interactions,
 )
 from coldrec_tpu_torch.models import TRAINERS
+from coldrec_tpu_torch.models import cgrc as cgrc_mod
 from coldrec_tpu_torch.models import ncl as ncl_mod
 from coldrec_tpu_torch.models import simgcl as simgcl_mod
 from coldrec_tpu_torch.models.lightgcn import GraphTables
@@ -218,7 +241,12 @@ from coldrec_tpu_torch.tools import tile_shapes
 from coldrec_tpu_torch.utils.logging import event_log
 from coldrec_tpu_torch.utils.metrics import ranking_evaluation
 
-BUDGET_S = 600.0  # the whole run, half of the 1200 s it may take at most
+# the whole run, under the 1200 s it may take at most. With phase recon
+# (before it, 457.7 s) and the earlier phases' depth cut to one epoch a
+# model it took 588.1 s, 677.9 s and ~862 s on three H100 machines: the
+# host's share of the run (batches, set-up, the CPU side of the card-vs-CPU
+# checks) varies 1.45x from machine to machine
+BUDGET_S = 1000.0
 D = 64  # MF emb_size (BASELINE default)
 K = 20
 RATED_WIDTH = 32
@@ -261,10 +289,10 @@ STEP_MAX_ERR = 2 * 1e-3 * STEP_CHECK
 # and MF bus: (model, epochs, flags). Book-crossing's item content has 416
 # columns (BASELINE.md:17).
 COLD_RUNS = (
-    ("DropoutNet", 2, ("--dropoutnet_hidden1", "200", "--dropoutnet_hidden2",
+    ("DropoutNet", 1, ("--dropoutnet_hidden1", "200", "--dropoutnet_hidden2",
                        "100", "--n_dropout", "0.5")),
-    ("GAR", 2, ()),
-    ("ALDI", 2, ()),
+    ("GAR", 1, ()),
+    ("ALDI", 1, ()),
     ("DeepMusic", 1, ()),
     ("DUIF", 1, ()),
     ("Heater", 1, ()),
@@ -283,7 +311,7 @@ ML_CONTENT = 206
 # (item cold): (model, epochs, flags); phase graph-user: book-crossing's
 # 2,312 user-content columns (BASELINE.md:17) under user cold start.
 GRAPH_RUNS = (
-    ("LightGCN", 2, ("--layers", "2")),
+    ("LightGCN", 1, ("--layers", "2")),
     ("NGCF", 1, ("--layers", "2")),
     ("SimGCL", 1, ("--layers", "2")),
     ("XSimGCL", 1, ("--layers", "2")),
@@ -296,9 +324,21 @@ BX_USER_CONTENT = 2_312
 # split, 416 columns; (b) under user cold start: the 18,422 cold users x
 # the 73,685 warm ones of phase graph-user's split, 2,312 columns; (c)
 # AGNN's item side: every item x the warm ones, k = agnn_knn_k + 1.
+FSGNN_FALLBACK = 32  # fsgnn_fallback_dim
 KNN_SHAPES = (("a", 54_034, 216_136, BX_CONTENT, 5),
               ("b", 18_422, 73_685, BX_USER_CONTENT, 5),
-              ("c", 270_170, 216_136, BX_CONTENT, 11))
+              ("c", 270_170, 216_136, BX_CONTENT, 11),
+              ("d", 270_170, 270_170, BX_CONTENT, 16),
+              ("e", 92_107, 92_107, FSGNN_FALLBACK, 16))
+# (d, e) FSGNN's graphs: every item against every item, every user against
+# every user at the 32 fallback columns of a side without content (the
+# queries are the values), k = fsgnn_knn_k + 1. On integer tables a, b and
+# e hold the whole search to the plain route; d holds its first chunk's
+# sweep (its integer ties send 30% of the rows to the exact fallback: the
+# whole search took 8 s of the run)
+KNN_SELF = ("d", "e")
+KNN_INTEGER = ("a", "b", "e")
+KNN_INTEGER_SWEEP = ("d",)
 KNN_INT_MAX = 3  # integer tables in [-3, 3]: every d=2312 sum is exact
 # Phase content: the content-feature cold models through the CLI on phase
 # train's split and MF bus, one epoch each (500 in the reference's
@@ -315,9 +355,38 @@ CONTENT_RUNS = (
     ("GoRec", 1, ()),
 )
 # the content searches each model makes: KNN the cold side against the
-# warm one, AGNN both sides against their warm rows
-KNN_CALLS = {"KNN": 1, "AGNN": 2}
+# warm one, AGNN both sides against their warm rows, FSGNN each side
+# against itself
+KNN_CALLS = {"KNN": 1, "AGNN": 2, "FSGNN": 2}
+# Phase recon: the reconstruction-family models through the CLI on phase
+# train's split and MF bus, one epoch each (M2VAE's default is 10, CGRC's
+# and FSGNN's 500; cut for the run's time limit; widths the published
+# ones), then CCFCRec's and M2VAE's card-vs-CPU steps, CGRC's top-k users
+# of the first CGRC_CHECK cold items against the CPU's, and FSGNN's step
+# split into its SpMM applies and GAT segment ops.
+RECON_RUNS = (
+    ("CCFCRec", 1, ()),
+    ("M2VAE", 1, ()),
+    ("CGRC", 1, ()),
+    ("FSGNN", 1, ()),
+)
+CGRC_CHECK = 2048
+# Models whose float32 steps on the card are held each from the CPU's
+# state (``hold_state``), their float32 free runs logged. SimGCL: its noise
+# takes the sign of each propagated element, so its loss jumps where an
+# element's two sums fall on either side of 0. CCFCRec (Adam at lr 1e-3 on
+# xavier-normal tables of scale ~5e-3) and VBPR (Adagrad at lr 0.05):
+# both optimizers move an element touched for the first time by ~lr
+# whatever its gradient's size, so an element whose gradient cancels to
+# rounding noise takes either sign. Over 20 steps on an H100 two card runs
+# of VBPR were bit-equal, and a float32 CPU run parted from a float64 one
+# by 9.8e-4 (VBPR) and 2.1e-3 (CCFCRec) in relative norm: float32 itself
+# does not repeat a free run to COLD_NORM_RTOL. Their free runs are held
+# in float64 on both devices instead, where the rounding noise lies far
+# below the optimizers' eps (1e-10, 1e-8) and cannot be amplified.
+SYNCED_STEPS = ("CCFCRec", "VBPR", "SimGCL")
 HBM_BYTES_S = 3.35e12  # the H100 SXM's HBM3 rate
+LIBRARY_CHUNK = 4096  # queries per mm + topk of phase knn's library yardstick
 # fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
 # float64 (TF32 leaves ~1e-3)
 FP32_RTOL = 1e-5
@@ -789,7 +858,7 @@ def write_split(root, ds, pairs, seed, content_dim, content=None,
     return res
 
 
-def train_run(device, n_users, n_items, n_inter, d=D, epochs=3, bs=4096,
+def train_run(device, n_users, n_items, n_inter, d=D, epochs=2, bs=4096,
               topN=(10, 20), seed=0, steps=STEP_CHECK, root=None,
               content_dim=1):
     """Phase train: MF trained through the port's CLI entry
@@ -1006,31 +1075,89 @@ def lists_vs_plain(data, ue, ie, device, backend="kernel", topN=(10, 20),
 
 
 def noise_walked(name: str) -> bool:
-    """A Linear bias right ahead of a BatchNorm (DropoutNet's tower blocks,
-    ALDI's fc1): its exact gradient is 0, and Adam moves it by ~lr a step
-    on rounding noise of either sign, differently on each device."""
-    return name.endswith(".bias") and (".lins." in name or ".fc1." in name)
+    """A weight whose exact gradient is 0, which Adam moves by ~lr a step on
+    rounding noise of either sign, differently on each device: a Linear
+    bias right ahead of a BatchNorm (DropoutNet's tower blocks, ALDI's fc1,
+    M2VAE's fc2, fc3 and decoder blocks) and CCFCRec's and M2VAE's
+    attr_b1 (one constant added to every attention logit)."""
+    return (name.endswith(("attr.attr_b1", ".lin.bias"))
+            or name.endswith(".bias") and (".lins." in name
+                                           or ".fc1." in name))
+
+
+def bx_trainer(model, device, data, root, d, bs, seed):
+    """``model``'s trainer on ``device`` over phase train's item-cold split
+    (its bus under ``root/emb``), writing no bus."""
+    return TRAINERS[model](Config(default_args(
+        model=model, dataset="bx_synth", cold_object="item", emb_size=d,
+        bs=bs, seed=seed, save_emb=False, emb_dir=os.path.join(root, "emb"),
+        device=str(device)), data))
+
+
+def _weights_gap(model, ref) -> float:
+    """The largest relative norm gap between two modules' weights, the
+    noise-walked ones left out."""
+    ref_params = dict(ref.named_parameters())
+    gap = 0.0
+    for name, p in model.named_parameters():
+        if noise_walked(name):
+            continue
+        want = ref_params[name].detach()
+        gap = max(gap, float((p.detach().cpu() - want).norm()
+                             / want.norm().clamp_min(1e-30)))
+    return gap
+
+
+def hold_state(trainers, ref) -> None:
+    """Start each of ``trainers`` from ``ref``'s weights and optimizer
+    state: the held step of a card-vs-CPU check."""
+    for t in trainers:
+        t.model.load_state_dict(ref.model.state_dict())
+        t.optimizer.load_state_dict(copy.deepcopy(ref.optimizer.state_dict()))
+
+
+def as_float64(t) -> None:
+    """Trainer ``t`` in float64: its module, its float32 tensors (the
+    content tables) and its optimizer's state."""
+    state = t.optimizer.state_dict()
+    t.model.double()
+    for name, v in list(vars(t).items()):
+        if torch.is_tensor(v) and v.dtype == torch.float32:
+            setattr(t, name, v.double())
+    t.optimizer.load_state_dict(state)
 
 
 def cold_step_parity(device, data, root, model, d=D, bs=4096,
-                     steps=STEP_CHECK, seed=0):
+                     steps=STEP_CHECK, seed=0, synced=False, float64=False):
     """``steps`` steps of ``model`` on ``device`` and on the CPU from the
-    same weights and batches (DropoutNet: the same rows dropped, drawn once
-    on the host). Returns (loss max rel err, weights max relative norm gap
-    without the noise-walked biases, eval tables of the card's final
-    weights and state on both devices: max abs err over the table scale)."""
+    same weights and the model's own batches (DropoutNet: the same rows
+    dropped, M2VAE: the same normals, drawn once on the host), in float32
+    or (``float64``) on both devices in float64. Returns {"free": (loss max
+    rel err, weights max relative norm gap without the noise-walked
+    weights, eval tables of the card's final weights and state on both
+    devices: max abs err over the table scale)} and, with ``synced``,
+    "synced": (loss max rel err, weights gap) of a third trainer on
+    ``device`` that starts every step from the CPU trainer's state, its gap
+    taken after each step."""
     device = torch.device(device)
     cpu = torch.device("cpu")
-    trainers = [TRAINERS[model](Config(default_args(
-        model=model, dataset="bx_synth", cold_object="item", emb_size=d,
-        bs=bs, seed=seed, save_emb=False, emb_dir=os.path.join(root, "emb"),
-        device=str(dev)), data)) for dev in (device, cpu)]
-    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    devs = (device, cpu) + ((device,) if synced else ())
+    trainers = [bx_trainer(model, dev, data, root, d, bs, seed)
+                for dev in devs]
+    for t in trainers[1:]:
+        t.model.load_state_dict(trainers[0].model.state_dict())
+    if float64:
+        for t in trainers:
+            as_float64(t)
+    held = trainers[2:]
     gen = torch.Generator().manual_seed(seed)
-    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
-    losses = []
+    trainers[1].host_rng = np.random.default_rng(seed)
+    batches = trainers[1].batches()
+    losses, held_gap = [], 0.0
     for _, batch in zip(range(steps), batches):
-        kw = [{}, {}]
+        kw = {}
+        if model == "M2VAE":
+            kw = {"draws": trainers[1].draw(len(batch["user"]))}
         if model == "DropoutNet":
             n = len(batch["user"])
             n_zero = int(n * trainers[0].n_dropout)
@@ -1039,30 +1166,41 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
                 m = torch.ones(n)
                 m[torch.randperm(n, generator=gen)[:n_zero]] = 0.0
                 masks.append(m)
-            kw = [{"masks": tuple(m.to(t.device) for m in masks)}
-                  for t in trainers]
-        losses.append([float(t.train_step(t.upload(batch), **k))
-                       for t, k in zip(trainers, kw)])
+            kw = {"masks": tuple(masks)}
+        hold_state(held, trainers[1])
+        losses.append([float(t.train_step(t.upload(batch), **_on(kw, t)))
+                       for t in trainers])
+        for t in held:
+            held_gap = max(held_gap, _weights_gap(t.model,
+                                                  trainers[1].model))
     losses = np.asarray(losses)
-    loss_err = float(np.max(np.abs(losses[:, 0] - losses[:, 1])
-                            / np.abs(losses[:, 1])))
-    cpu_params = dict(trainers[1].model.named_parameters())
-    gap = 0.0
-    for name, p in trainers[0].model.named_parameters():
-        if noise_walked(name):
-            continue
-        want = cpu_params[name].detach()
-        gap = max(gap, float((p.detach().cpu() - want).norm()
-                             / want.norm().clamp_min(1e-30)))
+    err = np.abs(losses - losses[:, 1:2]) / np.abs(losses[:, 1:2])
+    gap = _weights_gap(trainers[0].model, trainers[1].model)
     trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    if model == "M2VAE":  # the cold rows' eval draw, one on both devices
+        normal = trainers[1].eval_normal(trainers[1].cold_idx.shape[0])
+        trainers[0].eval_normal = lambda n: normal.to(device)
     table_err = 0.0
-    for t in trainers:
+    for t in trainers[:2]:
         t.refresh_tables()
     for a, b in zip((trainers[0].user_emb, trainers[0].item_emb),
                     (trainers[1].user_emb, trainers[1].item_emb)):
         table_err = max(table_err, float((a.cpu() - b).abs().max()
                                          / b.abs().max()))
-    return loss_err, gap, table_err
+    out = {"free": (float(err[:, 0].max()), gap, table_err)}
+    if synced:
+        out["synced"] = (float(err[:, 2].max()), held_gap)
+    return out
+
+
+def _on(kw: dict, t) -> dict:
+    """The step's injected draws on trainer ``t``'s device."""
+    def move(v):
+        if isinstance(v, dict):
+            return {k: x.to(t.device) for k, x in v.items()}
+        return tuple(x.to(t.device) for x in v)
+
+    return {k: move(v) for k, v in kw.items()}
 
 
 def cold_run(device, root, ds="bx_synth", runs=COLD_RUNS, d=D, bs=4096,
@@ -1129,19 +1267,7 @@ def cold_run(device, root, ds="bx_synth", runs=COLD_RUNS, d=D, bs=4096,
         raise AssertionError(f"the bf16 run's launches: {launches}")
 
     for model in ("DropoutNet", "ALDI"):
-        t = time.perf_counter()
-        loss_err, gap, table_err = cold_step_parity(device, data, root,
-                                                    model, d, bs, steps,
-                                                    seed)
-        log(f"  {model}: {steps} steps {device.type} vs cpu "
-            f"({time.perf_counter() - t:.2f} s): loss max rel err "
-            f"{loss_err:.3e}, weights max relative norm gap {gap:.3e} "
-            f"(noise-walked biases left out), eval tables of one set of "
-            f"weights max rel err {table_err:.3e}")
-        if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
-                and table_err <= STEP_LOSS_RTOL):
-            raise AssertionError(f"{model}: the card's steps disagree with "
-                                 "the CPU's")
+        hold_cold_steps(device, data, root, model, d, bs, steps, seed)
     return launches, per_model
 
 
@@ -1170,7 +1296,7 @@ def timed_s(fn, device):
     return out, time.perf_counter() - t
 
 
-def knn_library(queries, values, k, chunk=4096):
+def knn_library(queries, values, k, chunk=LIBRARY_CHUNK):
     """The library yardstick: per chunk of queries one TF32-off
     ``torch.mm`` and ``torch.topk(k + 1)``."""
     out = []
@@ -1210,8 +1336,17 @@ def knn_shape(device, tag, q, v, d, k, seed=0):
     # the kernel route, whose sweep is the kernel's plain version there
     entry = knn_mod.knn_inner_product if cuda else knn_mod.knn_via_kernel
     out = {"d": d, "queries": q, "values": v, "k": k}
-    for integer in ((True, False) if tag in ("a", "b") else (False,)):
+    if tag in KNN_INTEGER_SWEEP:
+        qs, vs = knn_tables(device, min(q, USER_CHUNK), v, d, seed, True)
+        knn_first_sweep(tag, vs if tag in KNN_SELF else qs, vs, d)
+        log(f"  knn {tag} {q} x {v} d={d} k={k}, integer tables: the first "
+            f"{min(q, USER_CHUNK)} queries' sweep bit-equal to its plain "
+            "version")
+        del qs, vs
+    for integer in ((True, False) if tag in KNN_INTEGER else (False,)):
         qs, vs = knn_tables(device, q, v, d, seed, integer)
+        if tag in KNN_SELF:
+            qs = vs
         reset_launches()
         rows0 = ret.apply_exact_fallback.rows
         if cuda:
@@ -1229,14 +1364,7 @@ def knn_shape(device, tag, q, v, d, k, seed=0):
                                  f"nothing: {launches}")
         kind = "integer" if integer else "N(0,1)"
         if integer:
-            # the sweep of the first chunk against its plain version
-            excl = torch.zeros(v, dtype=torch.bool, device=device)
-            items_t, excl_row = pad_items(vs, excl)
-            chunk = qs[:USER_CHUNK].contiguous()
-            hold_equal(f"knn {tag} fused_sweep d={d}",
-                       fused_sweep(chunk, items_t, excl_row),
-                       fused_sweep_reference(chunk, items_t, excl_row))
-            del items_t, excl_row
+            knn_first_sweep(tag, qs, vs, d)
             if not (np.array_equal(ki, pi) and np.array_equal(ks, ps)):
                 bad = int((ki != pi).any(axis=1).sum())
                 raise AssertionError(f"knn {tag} integer tables: {bad} rows "
@@ -1262,7 +1390,7 @@ def knn_shape(device, tag, q, v, d, k, seed=0):
     _, out["kernel_s"] = timed_s(lambda: entry(qs, vs, k, device=device),
                                  device)
     out["sweep_s"] = knn_sweeps(qs, vs, device)
-    knn_library(qs, vs, k)
+    knn_library(qs[:LIBRARY_CHUNK], vs, k)  # warm-up: its chunk's shapes
     _, out["library_s"] = timed_s(lambda: knn_library(qs, vs, k), device)
     # each table read once, the (Q, k) scores and ids written once
     bound_ms, out["bound_by"] = sweep_bound(2.0 * q * v * d,
@@ -1273,6 +1401,17 @@ def knn_shape(device, tag, q, v, d, k, seed=0):
         f"library (mm + topk({k + 1})) {out['library_s']:.3f} s, bound "
         f"{out['bound_s']:.3f} s ({out['bound_by']})")
     return out
+
+
+def knn_first_sweep(tag, qs, vs, d):
+    """The sweep of the first chunk of queries against its plain version,
+    bit for bit (integer tables)."""
+    excl = torch.zeros(vs.shape[0], dtype=torch.bool, device=vs.device)
+    items_t, excl_row = pad_items(vs, excl)
+    chunk = qs[:USER_CHUNK].contiguous()
+    hold_equal(f"knn {tag} fused_sweep d={d}",
+               fused_sweep(chunk, items_t, excl_row),
+               fused_sweep_reference(chunk, items_t, excl_row))
 
 
 def knn_run(device, shapes=KNN_SHAPES, seed=0):
@@ -1308,31 +1447,194 @@ def content_run(device, root, ds="bx_synth", runs=CONTENT_RUNS, d=D,
     for model, epochs, flags in runs:
         r = graph_cli(device, root, ds, model, epochs, flags, data, d, bs,
                       seed, topN, expected=expected)
-        calls = r["knn"]
-        log(f"    knn routes {calls}")
-        if len(calls) != KNN_CALLS.get(model, 0) or any(
-                route != knn_mod.knn_route(v, k, device)
-                for route, _, v, _, k in calls):
-            raise AssertionError(f"{model}: content searches {calls}")
+        check_knn_calls(model, r["knn"], device)
         per_model[model] = r["launches"]
     for model in ("VBPR", "MetaEmbedding"):
-        t = time.perf_counter()
-        loss_err, gap, table_err = cold_step_parity(device, data, root,
-                                                    model, d, bs, steps,
-                                                    seed)
-        log(f"  {model}: {steps} steps {device.type} vs cpu "
-            f"({time.perf_counter() - t:.2f} s): loss max rel err "
-            f"{loss_err:.3e}, weights max relative norm gap {gap:.3e}, eval "
-            f"tables of one set of weights max rel err {table_err:.3e}")
+        hold_cold_steps(device, data, root, model, d, bs, steps, seed)
+    return per_model
+
+
+def check_knn_calls(model, calls, device) -> None:
+    """The run's content searches: as many as the model makes, each on the
+    JAX package's route (the kernel on the card where it fits)."""
+    log(f"    knn routes {calls}")
+    if len(calls) != KNN_CALLS.get(model, 0) or any(
+            route != knn_mod.knn_route(v, k, device)
+            for route, _, v, _, k in calls):
+        raise AssertionError(f"{model}: content searches {calls}")
+
+
+def hold_cold_steps(device, data, root, model, d, bs, steps, seed) -> None:
+    """``cold_step_parity`` of ``model``, logged and held: losses within
+    STEP_LOSS_RTOL, weights within COLD_NORM_RTOL in relative norm, the
+    eval tables of one set of weights within STEP_LOSS_RTOL. A model of
+    SYNCED_STEPS is held on its float32 steps from the CPU's state (loss
+    and weights) and on its free run in float64 (the whole rule); its
+    float32 free run is logged."""
+    t = time.perf_counter()
+    synced = model in SYNCED_STEPS
+    r = cold_step_parity(device, data, root, model, d, bs, steps, seed,
+                         synced)
+
+    def text(loss_err, gap, table_err):
+        return (f"loss max rel err {loss_err:.3e}, weights max relative "
+                f"norm gap {gap:.3e}, eval tables of one set of weights max "
+                f"rel err {table_err:.3e}")
+
+    held = [r["free"]]
+    line = f"{text(*r['free'])}"
+    if synced:
+        r64 = cold_step_parity(device, data, root, model, d, bs, steps,
+                               seed, float64=True)
+        held = [(*r["synced"], r["free"][2]), r64["free"]]
+        line += (f"; each float32 step from the CPU's state: loss max rel "
+                 f"err {r['synced'][0]:.3e}, weights gap "
+                 f"{r['synced'][1]:.3e}; free-running in float64: "
+                 f"{text(*r64['free'])}")
+    log(f"  {model}: {steps} steps {torch.device(device).type} vs cpu "
+        f"({time.perf_counter() - t:.2f} s): {line}")
+    for loss_err, gap, table_err in held:
         if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
                 and table_err <= STEP_LOSS_RTOL):
             raise AssertionError(f"{model}: the card's steps disagree with "
                                  "the CPU's")
+
+
+# ----------------------------------------------- the reconstruction models
+def recon_run(device, root, ds="bx_synth", runs=RECON_RUNS, d=D, bs=4096,
+              topN=(10, 20), seed=0, steps=STEP_CHECK, n_check=CGRC_CHECK):
+    """Phase recon: each reconstruction-family model through the CLI on
+    phase train's split and MF bus, checked by ``graph_cli`` (launches,
+    fallback, peak memory, each epoch's split, lists held to the plain
+    path, each split's route), its content searches on the JAX package's
+    route, FSGNN's graph build and CGRC's evaluations logged from the event
+    log; then CCFCRec's and M2VAE's steps on the card against the CPU,
+    CGRC's top-k users against the CPU's and FSGNN's step split. Returns
+    {model: launches}."""
+    device = torch.device(device)
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    expected = expected_routes(data, "item", bs, max(topN), device)
+    per_model = {}
+    for model, epochs, flags in runs:
+        r = graph_cli(device, root, ds, model, epochs, flags, data, d, bs,
+                      seed, topN, expected=expected)
+        check_knn_calls(model, r["knn"], device)
+        for e in r["events"]:
+            if e["event"] == "fsgnn_graph":
+                log(f"    graph build {e['build_s']:.2f} s: PPR ({e['ppr_route']}) "
+                    f"{e['ppr_s']:.2f} s, {e['ppr_edges']} edges added; "
+                    f"cosine kNN {e['knn_s']:.2f} s, user-user "
+                    f"{e['uu_edges']} and item-item {e['ii_edges']} "
+                    f"entries; merged graph {e['merged_nnz']} entries")
+            elif e["event"] == "cgrc_eval":
+                log(f"    evaluation: top-{e['k']} users of {e['cold_items']}"
+                    f" cold items {e['topk_users_s']:.3f} s, Ĝ rebuild "
+                    f"{e['ghat_rebuild_s']:.3f} s ({e['ghat_edges']} "
+                    f"entries), propagation {e['propagate_s']:.3f} s")
+        per_model[model] = r["launches"]
+    for model in ("CCFCRec", "M2VAE"):
+        hold_cold_steps(device, data, root, model, d, bs, steps, seed)
+    cgrc_topk_check(device, data, root, d, bs, seed, n_check)
+    fsgnn_step_split(device, data, root, d, bs, seed)
     return per_model
 
 
+def cgrc_topk_check(device, data, root, d=D, bs=4096, seed=0,
+                    n_check=CGRC_CHECK):
+    """CGRC's top-k users on ``device`` against the same function on the CPU
+    from the same weights and inputs, for the first ``n_check`` cold items:
+    rows id-equal, or differing only where the logits at both lists agree
+    position by position within GAP_REL of the row's largest. The card's
+    peak memory is read over the trainer's set-up, which evaluates once
+    (the top-k users of every cold item, the Ĝ rebuild, the propagation;
+    their seconds are the CLI run's ``cgrc_eval`` events)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    tm = bx_trainer("CGRC", device, data, root, d, bs, seed)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    m = tm.model
+    k = min(tm.topk, data.user_num)
+    with torch.no_grad():
+        x_all = tm.item_x()
+        h_u = tm.propagate_frozen(tm.full_graph, m.user_emb, x_all, tm.Lg)
+        x_cold = x_all[tm.cold_idx[:n_check]]
+        got = m.topk_users(h_u, x_cold, k).cpu()
+        cpu_model = copy.deepcopy(m).cpu()
+        h_u, x_cold = h_u.cpu(), x_cold.cpu()
+        t = time.perf_counter()
+        ref = cpu_model.topk_users(h_u, x_cold, k)
+        cpu_s = time.perf_counter() - t
+        bad = (got != ref).any(dim=1).nonzero().squeeze(1)
+        hu, xi = cpu_model.edge_parts(h_u, x_cold)
+        b1, w2, b2 = cpu_model.mlp_tail()
+        for r in bad.tolist():
+            sa, sb = (cgrc_mod.block_logits(xi[r:r + 1] + b1, hu[ids], w2,
+                                            b2)[0]
+                      for ids in (got[r], ref[r]))
+            scale = max(float(sa.abs().max()), float(sb.abs().max()))
+            if float((sa - sb).abs().max()) > GAP_REL * scale + 1e-30:
+                raise AssertionError(f"CGRC cold item {r}: top users "
+                                     f"{got[r][:6]} vs {ref[r][:6]}")
+    log(f"  CGRC: peak card memory {peak:.2f} GiB over a set-up with one "
+        f"evaluation; top-{k} users of the first {got.shape[0]} cold items "
+        f"x {data.user_num} users on the {device.type} against the CPU's "
+        f"({cpu_s:.2f} s): {got.shape[0] - bad.shape[0]} rows id-equal, the "
+        "others near-ties")
+
+
+def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
+    """FSGNN's training step on ``device`` (mean of ``reps`` steps), beside
+    one forward + backward of each of its SpMM operators (the merged graph,
+    the training graph, the two kNN graphs) times the applies a step makes,
+    and of the GAT's segment softmax and sums: the shares of the step.
+    Returns the numbers."""
+    t = time.perf_counter()
+    tm = bx_trainer("FSGNN", device, data, root, d, bs, seed)
+    setup_s = time.perf_counter() - t
+    tm.host_rng = np.random.default_rng(seed)
+    batches = [tm.upload(b) for _, b in zip(range(reps), tm.batches())]
+    it = iter(range(10 ** 9))
+    step_ms = erk.time_ms(lambda: tm.train_step(
+        batches[next(it) % reps]), reps, device, repeats=1)
+    m = tm.model
+    applies = {"merged": (tm.g_complete, tm.n_layers),
+               "train": (tm.g_train, len(m.fc_dec)),
+               "user kNN": (tm.g_uu, len(m.sc_uu)),
+               "item kNN": (tm.g_ii, len(m.sc_ii))}
+    out = {"setup_s": setup_s, "step_ms": step_ms, "spmm_ms": {}}
+    spmm_total = 0.0
+    for name, (op, count) in applies.items():
+        n = op.graph.n_rows
+        x = torch.randn((n, d), device=device, requires_grad=True)
+        g = torch.randn((n, d), device=device)
+        ms = erk.time_ms(lambda: op(x).backward(g), reps, device,
+                         repeats=1)
+        out["spmm_ms"][name] = ms
+        spmm_total += count * ms
+    h0_u = m.proj_u(tm.raw_u).detach().requires_grad_()
+    h0_i = m.proj_i(tm.raw_i).detach().requires_grad_()
+
+    def gat():
+        enc_u, enc_i = tm.gat_encode(h0_u, h0_i, h0_u, h0_i)
+        (enc_u.sum() + enc_i.sum()).backward()
+
+    out["gat_ms"] = erk.time_ms(gat, reps, device, repeats=1)
+    out["spmm_share"] = spmm_total / step_ms
+    out["gat_share"] = out["gat_ms"] / step_ms
+    log(f"  FSGNN step split (trainer set-up {setup_s:.2f} s): step "
+        f"{step_ms:.3f} ms; SpMM forward + backward "
+        + ", ".join(f"{k} {v:.3f} ms x {applies[k][1]}"
+                    for k, v in out["spmm_ms"].items())
+        + f" = {100 * out['spmm_share']:.1f}% of the step; GAT segment "
+        f"softmax and sums {out['gat_ms']:.3f} ms "
+        f"({100 * out['gat_share']:.1f}%)")
+    return out
+
+
 def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
-               content_dim=ML_CONTENT, d=D, epochs=5, bs=4096, seed=0,
+               content_dim=ML_CONTENT, d=D, epochs=2, bs=4096, seed=0,
                topN=(10, 20)):
     """Phase cold-signal: a latent-factor split (content a noisy view of
     the item factors) at the given shape; MF, then DropoutNet on its bus,
@@ -1467,7 +1769,8 @@ def graph_cli(device, root, ds, model, epochs, flags, data, d=D, bs=4096,
     if cuda and kernel_route and not launches["fused_sweep"] > 0:
         raise AssertionError(f"{model} left the kernel unlaunched")
     return {"launches": launches, "knn": knn_events(evs),
-            "epochs": [e for e in evs if e["event"] == "epoch"]}
+            "epochs": [e for e in evs if e["event"] == "epoch"],
+            "events": evs}
 
 
 def ncl_proto(device, data, d=D, bs=4096, seed=0, steps=STEP_CHECK):
@@ -1737,10 +2040,7 @@ def graph_step_parity(device, data, model, d=D, bs=4096, steps=STEP_CHECK,
                  for n, v in kw.items()}
             return float(t.train_step(t.upload(batch), **k))
 
-        for t in held:
-            t.model.load_state_dict(cpu.model.state_dict())
-            t.optimizer.load_state_dict(
-                copy.deepcopy(cpu.optimizer.state_dict()))
+        hold_state(held, cpu)
         step_losses, signs = [], []
         for t in (card, cpu, *held):
             with perturb_signs(synced and t is not card) as rec:
@@ -1767,7 +2067,7 @@ def graph_step_parity(device, data, model, d=D, bs=4096, steps=STEP_CHECK,
     return out
 
 
-def graph_ml_run(device, root, ds="ml_latent", epochs=5, d=D, bs=4096,
+def graph_ml_run(device, root, ds="ml_latent", epochs=2, d=D, bs=4096,
                  seed=0, topN=(10, 20), steps=STEP_CHECK):
     """Phase graph-ml (BASELINE config 2): LightGCN on phase cold-signal's
     latent split at MovieLens-1M shape for ``epochs`` epochs through the
@@ -1786,7 +2086,7 @@ def graph_ml_run(device, root, ds="ml_latent", epochs=5, d=D, bs=4096,
                                  expected=expected)["launches"]}
     for model in ("LightGCN", "SimGCL"):
         t = time.perf_counter()
-        synced = model == "SimGCL"
+        synced = model in SYNCED_STEPS
         res = graph_step_parity(device, data, model, d, bs, steps, seed,
                                 synced=synced)
         flips = res.pop("flips", [])
@@ -2221,15 +2521,16 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
 
 
 def build_all():
-    """The CUDA library and, on a thread beside it, the host sampler;
-    returns (BuildResult, (sampler path, its seconds))."""
-    def sampler():
+    """The CUDA library and, on a thread beside it, the host library (the
+    sampler and the PPR push); returns (BuildResult, (its path, its
+    seconds))."""
+    def host():
         t = time.perf_counter()
         return native.build(), time.perf_counter() - t
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(sampler)
-        return kbuild.build(), host.result()
+        hosted = pool.submit(host)
+        return kbuild.build(), hosted.result()
 
 
 def main() -> int:
@@ -2243,9 +2544,9 @@ def main() -> int:
     log(f"  {smi} | torch: {kind}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    built, sampler = run_phase("build", build_all)
+    built, host = run_phase("build", build_all)
     log(f"  {built.path.name}: nvcc {built.seconds:.2f} s\n{built.ptxas}")
-    log(f"  {sampler[0].name}: {sampler[1]:.2f} s")
+    log(f"  {host[0].name}: {host[1]:.2f} s")
 
     errs = [
         run_phase("kernel-bx", kernel_vs_plain, device, 2048, BX[1]),
@@ -2259,6 +2560,7 @@ def main() -> int:
                   content_dim=BX_CONTENT)
         bf16_launches, _ = run_phase("cold", cold_run, device, root)
         content = run_phase("content", content_run, device, root)
+        recon = run_phase("recon", recon_run, device, root)
         graph, _ = run_phase("graph", graph_run, device, root)
         graph_user = run_phase("graph-user", graph_user_run, device, root,
                                *BX)
@@ -2273,10 +2575,13 @@ def main() -> int:
         f"{sum(r['fused_sweep'] for r in graph.values())}, graph-user "
         f"{sum(r['fused_sweep'] for r in graph_user.values())}, graph-ml "
         f"{sum(r['fused_sweep'] for r in graph_ml.values())})")
-    content_launches = {name: sum(r[name] for r in content.values())
+    content_launches = {name: sum(r[name] for runs in (content, recon)
+                                  for r in runs.values())
                         for name in ("fused_sweep", "merge_parts")}
-    log(f"  knn phase: {knn['launches']} launches; content phase: "
-        f"{content_launches} launches")
+    log(f"  knn phase: {knn['launches']} launches; content and recon "
+        f"phases: {content_launches} launches (fused_sweep: content "
+        f"{sum(r['fused_sweep'] for r in content.values())}, recon "
+        f"{sum(r['fused_sweep'] for r in recon.values())})")
     knn_sweeps_line = [{
         "shape": tag, "queries": r["queries"], "values": r["values"],
         "d": r["d"], "k": r["k"], "launches": r["launches"]["fused_sweep"],

@@ -3,12 +3,13 @@
 
 MF, DeepMusic, DUIF, LightGCN and NGCF add no flags of their own (the
 graph backbones' ``--layers`` is a common flag, default 2). An entry's
-``"_overrides"`` sets common flags' defaults for that model (AGNN's lr, bs,
-emb_size and epochs, as in the reference's ``set_defaults``). Boolean flags
+``"_overrides"`` sets common flags' defaults for that model (AGNN's, M2VAE's,
+CGRC's and FSGNN's lr, bs, emb_size and epochs, as in the reference's
+``set_defaults``). Boolean flags
 take "true"/"false" (or no value: true); the (lr, wd) pairs of VBPR, AMR and
-MTPR take "0.05,0" or "[0.05, 0]". Every model of the JAX package that is
-not ported yet is refused with the ROADMAP queue item that brings it to the
-port.
+MTPR take "0.05,0" or "[0.05, 0]". The one model of the JAX package that is
+not ported yet, USIM, is refused with the ROADMAP queue item that brings it
+to the port (Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -58,6 +59,71 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
         "kl_coeff": 10.0,
         "dropout": 0.0,
     },
+    "CCFCRec": {
+        "positive_number": 5,
+        "negative_number": 40,
+        "self_neg_number": 40,
+        "tau": 0.1,
+        "lambda1": 0.6,
+        "attr_present_dim": 64,
+        "implicit_dim": 64,
+        "cat_implicit_dim": 64,
+        "pretrain": False,
+        "pretrain_update": False,
+    },
+    "M2VAE": {
+        "_overrides": dict(lr=5e-5, bs=4096, emb_size=64, epochs=10),
+        "positive_number": 10,
+        "negative_number": 40,
+        "self_neg_number": 40,
+        "attr_present_dim": 64,
+        "implicit_dim": 64,
+        "cat_implicit_dim": 64,
+        "tau": 0.1,
+        "m2vae_weight_decay": 0.1,
+        "m2vae_kld_weight": 1.0,
+        "m2vae_recon_weight": 1.0,
+        "m2vae_decouple_weight": 100.0,
+        "m2vae_pretrain": False,
+        "m2vae_pretrain_update": False,
+        "m2vae_attr_mask_neg1": False,
+    },
+    "CGRC": {
+        "_overrides": dict(lr=1e-3, bs=4096, emb_size=64, epochs=500),
+        "cgrc_mask_rho": 0.3,
+        "cgrc_recon_topk": 20,
+        "cgrc_layers_gprime": 2,
+        "cgrc_layers_full": 2,
+        "cgrc_layers_ghat": 2,
+        "cgrc_lambda_e": 1.0,
+        "cgrc_tau": 0.5,
+        "cgrc_mlp_hidden": 64,
+        "cgrc_le_max_edges": 4096,
+        "cgrc_ranking_neg_per_user": 32,
+    },
+    "FSGNN": {
+        "_overrides": dict(lr=0.005, reg=0.0005, emb_size=64, epochs=500,
+                           bs=4096),
+        "fsgnn_lambda_fc": 0.5,
+        "fsgnn_mu_sc": 0.5,
+        "fsgnn_p_drop": 0.3,
+        "fsgnn_gat_hidden": 64,
+        "fsgnn_ppr_delta": 0.15,
+        "fsgnn_ppr_iter": 30,
+        "fsgnn_ppr_topk": 15,
+        "fsgnn_knn_k": 15,
+        "fsgnn_light_layers": 2,
+        "fsgnn_weight_decay": 0.0005,
+        "fsgnn_sc_max_edges": 4096,
+        "fsgnn_fallback_dim": 32,
+        "fsgnn_dropout_cold_side_only": True,
+        "fsgnn_id_residual": False,
+        "fsgnn_sc_layers": 2,
+        "fsgnn_knn_weighted": True,
+        "fsgnn_ppr_weighted": True,
+        "fsgnn_fc_decoder_layers": 2,
+        "fsgnn_lfc_cold_side_only": True,
+    },
     "DropoutNet": {
         "n_dropout": 0.5,
         "dropoutnet_hidden1": 200,
@@ -95,8 +161,8 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
 }
 
 # ROADMAP.md, Queue 1: the item that ports each model of the JAX package
-_QUEUE_ITEM = dict.fromkeys(("CCFCRec", "M2VAE", "CGRC", "FSGNN", "USIM"),
-                            6)
+# that the port does not run yet
+_QUEUE_ITEM = {"USIM": 6}
 
 
 def require_ported(model: str) -> None:

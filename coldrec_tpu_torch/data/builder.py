@@ -98,10 +98,9 @@ def _build_eval_split(pairs: np.ndarray) -> EvalSplit:
         )
     users_order = first_seen_order(pairs[:, 0])
     # rank of each user in first-seen order
-    order_pos = {int(u): k for k, u in enumerate(users_order)}
-    row = np.fromiter(
-        (order_pos[int(u)] for u in pairs[:, 0]), dtype=np.int64, count=pairs.shape[0]
-    )
+    order_pos = np.empty(int(users_order.max()) + 1, dtype=np.int64)
+    order_pos[users_order] = np.arange(users_order.shape[0])
+    row = order_pos[pairs[:, 0]]
     # unique (row, item) pairs; duplicates collapse as in dict-of-dict storage
     key = row * (pairs[:, 1].max() + 1) + pairs[:, 1]
     _, uniq_idx = np.unique(key, return_index=True)
@@ -253,7 +252,7 @@ class ColdStartDataset:
         content = np.asarray(content, dtype=np.float32)
         n_buf = max(num, content.shape[0], int(order.shape[0]))
         out = np.zeros((n_buf, content.shape[1]), dtype=np.float32)
-        out[np.arange(order.shape[0])] = content[order]
+        np.take(content, order, axis=0, out=out[:order.shape[0]])
         return out
 
     def map_users(self, raw: np.ndarray) -> np.ndarray:

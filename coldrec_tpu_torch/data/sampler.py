@@ -1,7 +1,8 @@
 """Host-side BPR batches with static shapes (the port's copy of ``_pad``,
 ``sample_negatives``, ``pairwise_batches``,
-``pairwise_batches_with_neg_users`` (LARA), ``warm_item_pool`` and
-``pairwise_batches_multi_neg`` (CLCRec) from ``coldrec_tpu/data/sampler.py``;
+``pairwise_batches_with_neg_users`` (LARA), ``warm_item_pool``,
+``pairwise_batches_multi_neg`` (CLCRec) and ``ccfcrec_batches`` (CCFCRec,
+M2VAE) from ``coldrec_tpu/data/sampler.py``;
 reference ColdRec util/utils.py:123-233).
 
   * every batch has exactly ``batch_size`` rows; the final partial batch is
@@ -120,6 +121,21 @@ def pairwise_batches(
         }
 
 
+def _negative_users(data: ColdStartDataset, items: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+    """One seen user per item who did not rate it in training, drawn
+    uniformly and redrawn until clean (numpy, in the JAX package's order
+    of draws)."""
+    neg_users = rng.integers(0, data.n_seen_users, size=items.shape[0])
+    bad = data.is_rated(neg_users, items)
+    while bad.any():
+        idx = np.where(bad)[0]
+        neg_users[idx] = rng.integers(0, data.n_seen_users,
+                                      size=idx.shape[0])
+        bad[idx] = data.is_rated(neg_users[idx], items[idx])
+    return neg_users
+
+
 def pairwise_batches_with_neg_users(
     data: ColdStartDataset,
     batch_size: int,
@@ -130,37 +146,13 @@ def pairwise_batches_with_neg_users(
     negative item for the user and a negative user for the item (a seen
     user who did not rate it in training, rejection-sampled with numpy).
     Yields {user, pos_item, neg_item, neg_user, weight}."""
-    # sorted (item, user) keys of the training pairs: is (u, i) rated?
-    tp = data.train_pairs
-    order = np.lexsort((tp[:, 0], tp[:, 1]))
-    counts = np.bincount(tp[:, 1], minlength=data.item_num)
-    item_keys = (
-        np.repeat(np.arange(data.item_num, dtype=np.int64), counts)
-        * (data.user_num + 1)
-        + tp[order, 0]
-    )
-
-    def user_rated_item(users_q, items_q):
-        if item_keys.size == 0:
-            return np.zeros(users_q.shape, dtype=bool)
-        keys = items_q * (data.user_num + 1) + users_q
-        pos = np.minimum(np.searchsorted(item_keys, keys),
-                         item_keys.shape[0] - 1)
-        return item_keys[pos] == keys
-
     perm = rng.permutation(data.n_train)
     pairs = data.train_pairs[perm]
     for start in range(0, data.n_train, batch_size):
         chunk = pairs[start: start + batch_size]
         users, items = chunk[:, 0], chunk[:, 1]
         neg_items = sample_negatives(data, users, rng, sampler=sampler)
-        neg_users = rng.integers(0, data.n_seen_users, size=users.shape[0])
-        bad = user_rated_item(neg_users, items)
-        while bad.any():
-            idx = np.where(bad)[0]
-            neg_users[idx] = rng.integers(0, data.n_seen_users,
-                                          size=idx.shape[0])
-            bad[idx] = user_rated_item(neg_users[idx], items[idx])
+        neg_users = _negative_users(data, items, rng)
         n = chunk.shape[0]
         yield {
             "user": _pad(users.astype(np.int32), batch_size),
@@ -208,5 +200,56 @@ def pairwise_batches_multi_neg(
             "user": _pad(users.astype(np.int32), batch_size),
             "pos_item": _pad(chunk[:, 1].astype(np.int32), batch_size),
             "neg_items": _pad(negs.astype(np.int32), batch_size),
+            "weight": _pad(np.ones(n, np.float32), batch_size, fill=0.0),
+        }
+
+
+def ccfcrec_batches(
+    data: ColdStartDataset,
+    batch_size: int,
+    rng: np.random.Generator,
+    positive_number: int,
+    negative_number: int,
+    self_neg_number: int,
+    pool: Optional[np.ndarray] = None,
+    sampler: str = "native",
+) -> Iterator[Dict[str, np.ndarray]]:
+    """CCFCRec / M2VAE batches (utils.py:237-300): each positive pair with
+    a negative user (not a rater of the item), P co-occurring positives
+    (the user's training items, drawn with replacement), a P x N grid of
+    warm-pool negatives and S warm-pool self-negatives, each rejected
+    against the user's training positives. Yields {user, pos_item,
+    neg_user, pos_grid (B, P), neg_grid (B, P, N), self_negs (B, S),
+    weight}."""
+    if pool is None:
+        pool = warm_item_pool(data)
+    perm = rng.permutation(data.n_train)
+    pairs = data.train_pairs[perm]
+    deg = np.diff(data.train_indptr)
+    for start in range(0, data.n_train, batch_size):
+        chunk = pairs[start: start + batch_size]
+        users, items = chunk[:, 0], chunk[:, 1]
+        n = chunk.shape[0]
+        starts = data.train_indptr[users]
+        cnt = np.maximum(deg[users], 1)
+        r = rng.random((n, positive_number))
+        pos_grid = data.train_items_sorted[
+            starts[:, None] + (r * cnt[:, None]).astype(np.int64)]
+        neg_users = _negative_users(data, items, rng)
+        neg_grid = sample_negatives(
+            data, np.repeat(users, negative_number * positive_number), rng,
+            pool=pool, sampler=sampler,
+        ).reshape(n, positive_number, negative_number)
+        self_negs = sample_negatives(
+            data, np.repeat(users, self_neg_number), rng, pool=pool,
+            sampler=sampler,
+        ).reshape(n, self_neg_number)
+        yield {
+            "user": _pad(users.astype(np.int32), batch_size),
+            "pos_item": _pad(items.astype(np.int32), batch_size),
+            "neg_user": _pad(neg_users.astype(np.int32), batch_size),
+            "pos_grid": _pad(pos_grid.astype(np.int32), batch_size),
+            "neg_grid": _pad(neg_grid.astype(np.int32), batch_size),
+            "self_negs": _pad(self_negs.astype(np.int32), batch_size),
             "weight": _pad(np.ones(n, np.float32), batch_size, fill=0.0),
         }

@@ -13,9 +13,10 @@ the graph backbones LightGCN, NGCF, SimGCL, XSimGCL and NCL, the
 cold-start models DropoutNet, GAR, ALDI, DeepMusic, DUIF, Heater, AGNN,
 VBPR, MetaEmbedding, LARA and GoRec, which read the backbone's tables from
 the embedding bus (``--backbone MF`` or a graph backbone: run it first),
-AMR, which reads VBPR's bus (run VBPR first), and KNN, MTPR and CLCRec,
-which train their own tables; ``models/__init__.py`` names the ROADMAP
-item of the others.
+AMR, which reads VBPR's bus (run VBPR first), KNN, MTPR and CLCRec, which
+train their own tables, and the reconstruction models CCFCRec (its
+``--pretrain`` tables from the bus), M2VAE, CGRC and FSGNN. USIM, the one
+model left, is refused with its ROADMAP item (Queue 1, item 6).
 """
 from __future__ import annotations
 

@@ -1,21 +1,25 @@
 """Model registry (the port's counterpart of ``coldrec_tpu/models/__init__``;
-reference: model/__init__.py AVAILABLE_MODELS). The ported models map to
-their trainers; the others raise ``ValueError`` naming the ROADMAP item
-that brings them."""
+reference: model/__init__.py AVAILABLE_MODELS). The ported models (25 of
+the 26) map to their trainers; USIM raises ``ValueError`` naming the
+ROADMAP item that brings it."""
 from ..config.model_params import require_ported
 from .agnn import AGNNTrainer
 from .aldi import ALDITrainer
 from .amr import AMRTrainer
+from .ccfcrec import CCFCRecTrainer
+from .cgrc import CGRCTrainer
 from .clcrec import CLCRecTrainer
 from .deepmusic import DeepMusicTrainer
 from .dropoutnet import DropoutNetTrainer
 from .duif import DUIFTrainer
+from .fsgnn import FSGNNTrainer
 from .gar import GARTrainer
 from .gorec import GoRecTrainer
 from .heater import HeaterTrainer
 from .knn import KNNTrainer
 from .lara import LARATrainer
 from .lightgcn import LightGCNTrainer
+from .m2vae import M2VAETrainer
 from .metaembedding import MetaEmbeddingTrainer
 from .mf import MF, MFTrainer
 from .mtpr import MTPRTrainer
@@ -47,6 +51,10 @@ TRAINERS = {
     "LARA": LARATrainer,
     "CLCRec": CLCRecTrainer,
     "GoRec": GoRecTrainer,
+    "CCFCRec": CCFCRecTrainer,
+    "M2VAE": M2VAETrainer,
+    "CGRC": CGRCTrainer,
+    "FSGNN": FSGNNTrainer,
 }
 
 __all__ = ["MF", "MFTrainer", "TRAINERS", "model_factory"]

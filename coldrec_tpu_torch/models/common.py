@@ -40,6 +40,19 @@ def xavier_uniform(
     return (u * (2.0 * limit) - limit).to(device)
 
 
+def xavier_normal(
+    shape: Sequence[int],
+    generator: torch.Generator,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """N(0, std^2) with std = sqrt(2 / (fan_in + fan_out)) over the last two
+    dims (``nn.init.xavier_normal_``'s gain-1 rule; CCFCRec's and M2VAE's
+    ``_xavier_normal``), drawn on the CPU from ``generator``."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype) * std
+
+
 def table_param(table) -> nn.Parameter:
     """A trainable copy of an embedding table (a tensor on any device, or a
     numpy array), in float32."""
@@ -103,6 +116,16 @@ def mlp_apply(layers: nn.ModuleList, x: torch.Tensor,
 def mlp_slots(layers: nn.ModuleList, path: tuple) -> list:
     return [s for i, layer in enumerate(layers)
             for s in linear_slots(layer, path + (i,))]
+
+
+def rows_of(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along dim 0 by ``index_select``, whose backward is an
+    ``index_add_`` (atomics on the card). The backward of ``x[idx]``
+    (``index_put_`` with accumulate) sorts the indices and walks each row's
+    duplicates in turn: FSGNN's GAT, gathering the rows of 876,642 edges
+    onto zipf-popular items at book-crossing shape, took 119 ms forward and
+    backward that way on an H100 and 12 ms this way (PERF.md)."""
+    return x.index_select(0, idx)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

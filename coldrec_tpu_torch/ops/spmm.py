@@ -109,8 +109,10 @@ def build_ell(host, k_percentile: float = 95.0, device="cuda") -> EllGraph:
 
 
 def _row_sums(rows, cols, vals, n_rows, x):
-    """sum over edges e of vals[e] * x[cols[e]] into row rows[e]."""
-    data = x[cols] * vals[:, None]
+    """sum over edges e of vals[e] * x[cols[e]] into row rows[e]; the
+    gather is an ``index_select``, whose backward (where autograd takes
+    it: CGRC's G') is an ``index_add_``, not the sort of ``x[cols]``'s."""
+    data = x.index_select(0, cols) * vals[:, None]
     return x.new_zeros((n_rows, x.shape[1])).index_add_(0, rows, data)
 
 
@@ -139,6 +141,19 @@ def ell_apply(graph: EllGraph, x: torch.Tensor) -> torch.Tensor:
 def coo_apply(graph: SparseGraph, x: torch.Tensor) -> torch.Tensor:
     """A @ x of a row-sorted COO graph: gather, scale, sum into the rows."""
     return _row_sums(graph.rows, graph.cols, graph.vals, graph.n_rows, x)
+
+
+def reweighted_sym_graph(rows: torch.Tensor, cols: torch.Tensor,
+                         keep: torch.Tensor, n_rows: int) -> SparseGraph:
+    """D^-1/2 (A * keep) D^-1/2 as a COO :class:`SparseGraph` over a static
+    edge list (``rows``, ``cols``) whose edges carry 0/1 weights ``keep``,
+    the degrees recomputed from the kept edges by a segment sum: CGRC's G'
+    with the edges of its simulated cold items dropped, with no layout
+    rebuilt per step (the JAX package's ``CGRC._masked_graph_vals``)."""
+    deg = keep.new_zeros(n_rows).index_add_(0, rows, keep)
+    d_inv = torch.where(deg > 0, deg.pow(-0.5), torch.zeros_like(deg))
+    return SparseGraph(rows=rows, cols=cols,
+                       vals=d_inv[rows] * d_inv[cols] * keep, n_rows=n_rows)
 
 
 def spmm(graph, x: torch.Tensor) -> torch.Tensor:

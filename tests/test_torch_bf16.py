@@ -29,6 +29,7 @@ from coldrec_tpu_torch.runtime.serving import RetrievalServer as TServer
 from coldrec_tpu_torch.runtime.trainer import (
     Config, eval_backend, rec_lists,
 )
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 GAP_REL = 1e-5
 

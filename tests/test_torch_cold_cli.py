@@ -15,6 +15,7 @@ from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
 from coldrec_tpu_torch.data.synthetic import synthetic_interactions
 from coldrec_tpu_torch.runtime.checkpoints import load_embeddings
 from test_torch_cold_models import MODELS, small_flags
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

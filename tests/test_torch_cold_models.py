@@ -30,6 +30,7 @@ from coldrec_tpu_torch.models.common import (
     MaskedBatchNorm1d, dropout, jax_value,
 )
 from coldrec_tpu_torch.runtime.trainer import Config
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-6
 SCALE_FLOOR = 1e-2

@@ -19,6 +19,7 @@ from test_torch_cold_models import (  # noqa: F401  (envs is a fixture)
     assert_weights, envs, jax_batch, make_pair, step_kw, to_numpy,
     torch_batch,
 )
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 STEPS = 5
 

@@ -25,6 +25,7 @@ from test_torch_cold_models import (  # noqa: F401  (envs is a fixture)
     CASES, assert_close, assert_tables_from_jax, assert_weights,
     envs, jax_masks, make_pair, noise_walked, port_value, to_numpy,
 )
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 EPOCHS = 3
 LOSS_RTOL = 1e-5

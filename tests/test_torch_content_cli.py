@@ -18,6 +18,7 @@ from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
 from coldrec_tpu_torch.data.synthetic import synthetic_interactions
 from coldrec_tpu_torch.runtime.checkpoints import load_embeddings
 from test_torch_content_models import MODELS, small_flags
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

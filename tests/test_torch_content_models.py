@@ -36,6 +36,7 @@ from coldrec_tpu_torch.data.synthetic import synthetic_dataset
 from coldrec_tpu_torch.models import TRAINERS, model_factory
 from coldrec_tpu_torch.models.common import jax_value
 from coldrec_tpu_torch.runtime.trainer import Config
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 SCALE_FLOOR = 1e-2

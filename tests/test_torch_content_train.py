@@ -15,6 +15,7 @@ from coldrec_tpu_torch.models.common import jax_value
 from test_torch_content_models import (  # noqa: F401  (envs is a fixture)
     RTOL, assert_close, envs, make_pair, to_numpy,
 )
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 QUIET = ("KNN", "VBPR", "AMR", "MTPR", "MetaEmbedding", "LARA")
 # Adagrad (lr 0.05) and Adam carry float32 rounding differences forward:

@@ -13,6 +13,7 @@ import torch
 
 from coldrec_tpu.runtime import eval as jeval
 from coldrec_tpu_torch.runtime import eval as teval
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _int_scores(rng, b, n_items, d=8, lo=-3, hi=4):

@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from coldrec_tpu_torch.tools import exp_blockskip as tebs
 from coldrec_tpu_torch.tools import exp_multiacc as tema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as terk
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 B, I, D = 16, 2048, 8
 TILE_U = 8  # the JAX kernels' user tile (changes no result but the skip's)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from coldrec_tpu_torch.ops.cuda import retrieval as tret
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.gpu
 
@@ -753,3 +754,26 @@ def test_kernel_at_d2312_matches_plain(cuda):
     rv, _, rg = tret.fused_sweep_reference(users, items_t, excl_row)
     torch.testing.assert_close(cv, rv, rtol=0, atol=1e-2)
     torch.testing.assert_close(gh, rg, rtol=0, atol=1e-2)
+
+
+# FSGNN's cosine-kNN graphs search a table against itself: the item side at
+# book-crossing's 416 content columns, the user side at its 32 fallback
+# columns (no user content under item cold start); k = fsgnn_knn_k + 1
+@pytest.mark.parametrize("d", [416, 32])
+def test_knn_self_search_matches_plain_on_integer_tables(cuda, d):
+    """The square self-search (queries = values) through the kernel route,
+    bit for bit against the plain route on integer tables: ids and values,
+    duplicate and all-zero rows (ties across the cut) included."""
+    from coldrec_tpu_torch.ops import knn as tknn
+
+    rng = np.random.default_rng(d + 1)
+    table = rng.integers(-3, 4, (12_000, d)).astype(np.float32)
+    table[:3] = 0.0
+    table[100:110] = table[99]
+    assert tknn.knn_route(len(table), 16, cuda) == "kernel"
+    before = tret.fused_sweep.launches
+    s, i = tknn.knn_inner_product(table, table, 16, device=cuda)
+    assert tret.fused_sweep.launches > before
+    ps, pi = tknn.knn_plain(table, table, 16, device=cuda)
+    np.testing.assert_array_equal(i, pi)
+    np.testing.assert_array_equal(s, ps)

@@ -22,6 +22,7 @@ from coldrec_tpu.ops import losses as jlosses
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset
 from coldrec_tpu_torch.ops import losses as tlosses
 from coldrec_tpu_torch.ops.kmeans import kmeans
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 jspmm = importlib.import_module("coldrec_tpu.ops.spmm")
 tspmm = importlib.import_module("coldrec_tpu_torch.ops.spmm")

@@ -38,6 +38,7 @@ from coldrec_tpu_torch.models import TRAINERS, model_factory
 from coldrec_tpu_torch.models.common import jax_value
 from coldrec_tpu_torch.models.ncl import WARMUP_EPOCHS
 from coldrec_tpu_torch.runtime.trainer import Config, three_way_test
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
 MODELS = ("LightGCN", "NGCF", "SimGCL", "XSimGCL", "NCL")

@@ -18,6 +18,7 @@ from coldrec_tpu_torch.data import split as tsplit
 from coldrec_tpu_torch.data import synthetic as tsynth
 from coldrec_tpu_torch.runtime import checkpoints as tckpt
 from coldrec_tpu_torch.utils import metrics as tmetrics
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 SPLIT_FIELDS = ("warm_train", "warm_val", "warm_test", "cold_val",
                 "cold_test", "overall_val", "overall_test", "warm_user",

@@ -26,6 +26,7 @@ from coldrec_tpu_torch.data import sampler as tsampler
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset as tsynth
 from coldrec_tpu_torch.ops import knn as tknn
 from coldrec_tpu_torch.ops.cuda import retrieval as tret
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-5
 ROUTES = {"kernel": tknn.knn_via_kernel, "plain": tknn.knn_plain}

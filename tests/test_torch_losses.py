@@ -10,6 +10,7 @@ import torch
 from coldrec_tpu.ops import losses as jl
 from coldrec_tpu_torch.models.mf import MF
 from coldrec_tpu_torch.ops import losses as tl
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 TOL = 1e-6
 

@@ -12,6 +12,7 @@ import torch
 from coldrec_tpu.ops.pallas import retrieval as jret
 from coldrec_tpu.runtime.eval import masked_topk as jmasked_topk
 from coldrec_tpu_torch.ops.cuda import retrieval as tret
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _case(rng, n_users, n_items, d=16, max_rated=12, excl_frac=4):

@@ -8,6 +8,7 @@ import torch
 
 from coldrec_tpu.ops.pallas import retrieval as jret
 from coldrec_tpu_torch.ops.cuda import retrieval as tret
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def test_plain_sweep_matches_pallas_sweep(rng):

@@ -10,6 +10,7 @@ from coldrec_tpu.data.synthetic import synthetic_dataset as jsynth
 from coldrec_tpu_torch import native as tnative
 from coldrec_tpu_torch.data import sampler as tsampler
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset as tsynth
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 KW = dict(n_users=70, n_items=80, n_inter=1400, cold_object="item", seed=71)
 

@@ -10,6 +10,7 @@ from coldrec_tpu.runtime.checkpoints import save_embeddings as jsave
 from coldrec_tpu.runtime.serving import RetrievalServer as JServer
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset as tsynth
 from coldrec_tpu_torch.runtime.serving import RetrievalServer as TServer
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 K = 7
 D = 8

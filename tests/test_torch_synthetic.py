@@ -5,6 +5,7 @@ import pytest
 
 from coldrec_tpu.data import synthetic as jsyn
 from coldrec_tpu_torch.data import synthetic as tsyn
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("kw", [

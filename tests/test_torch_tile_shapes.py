@@ -6,6 +6,7 @@ import torch
 
 from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.tools import tile_shapes as ts
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def test_committed_shapes_have_seven_fields():

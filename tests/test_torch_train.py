@@ -36,6 +36,7 @@ from coldrec_tpu_torch.models import model_factory
 from coldrec_tpu_torch.models.mf import MFTrainer
 from coldrec_tpu_torch.runtime.checkpoints import load_embeddings
 from coldrec_tpu_torch.runtime.trainer import Config
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 KW = dict(n_users=70, n_items=80, n_inter=1400, cold_object="item", seed=71)
 COMMON = dict(model="MF", dataset="synth", bs=256, emb_size=16, seed=5,
@@ -259,9 +260,7 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,match", [
-    ("CCFCRec", "Queue 1, item 6"), ("M2VAE", "Queue 1, item 6"),
-    ("CGRC", "Queue 1, item 6"), ("FSGNN", "Queue 1, item 6"),
-    ("NotAModel", "Invalid model name"),
+    ("USIM", "Queue 1, item 6"), ("NotAModel", "Invalid model name"),
 ])
 def test_models_other_than_mf_raise(datasets, model, match):
     _, td = datasets

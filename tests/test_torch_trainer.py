@@ -10,6 +10,7 @@ from coldrec_tpu.runtime.eval import EvalSweep as JEvalSweep
 from coldrec_tpu.utils.metrics import ranking_evaluation as jrank
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset as tsynth
 from coldrec_tpu_torch.runtime.trainer import SETTING_SPLITS, three_way_test
+from test_torch_threads import torch_threads  # noqa: F401  (autouse)
 
 D = 8
 
