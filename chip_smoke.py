@@ -107,6 +107,21 @@ Phases, each printed with its seconds:
               evaluation, and its top-k users of the first 2,048 cold items
               held against the CPU's; FSGNN's step beside its SpMM applies
               and GAT segment ops;
+  usim        USIM through the CLI on that split and MF bus at its
+              published widths (92,108 actions: the 92,107 users and the
+              stop token; max_time 7, k 10; d=64, bs 4096: 53 batches),
+              one epoch, checked as in phase content, each epoch's split
+              logged (host batches, step enqueue, device step, the greedy
+              inference of the 54,034 cold items, validation, the test);
+              then one step at bs 256 on the card against the CPU from
+              the same weights and draws (rollout actions equal, losses,
+              nets) after the greedy inference of 2,048 cold items
+              (actions equal, states); phase usim-split, after the checks
+              are joined (below), splits one batch step by CUDA events
+              into its phases (the hoisted top-ks, the 3 x 7 rollout
+              steps, the PPO targets, each of the 5 PPO iterations, the
+              termination step) and times the inference of one 4096-item
+              chunk, each beside its bound;
   graph       the graph backbones through the CLI on that split (d=64, bs
               4096, --layers 2), one epoch each: LightGCN, NGCF, SimGCL,
               XSimGCL and NCL (BASELINE config 2's model and config 5's
@@ -174,6 +189,12 @@ Phases, each printed with its seconds:
               bytes (the build's ``-Xptxas -v``), the skip kernel's
               resident clusters per layout, and every P and tile_u time.
 
+Every card-vs-CPU check runs its card side in its phase and hands its CPU
+side (which depends only on the split, the initial weights and the draws)
+to a worker thread (``CHECKS``), which takes half the intra-op threads;
+its comparison runs at a later phase boundary or when the checks are
+joined after the last phase, and a failure there fails the run. Synced
+checks step the card from each of the CPU's recorded states at that point.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
 exit code is non-zero and no result line is printed. With no card it exits
@@ -189,11 +210,13 @@ import concurrent.futures
 import contextlib
 import copy
 import io
+import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -214,6 +237,7 @@ from coldrec_tpu_torch.models import TRAINERS
 from coldrec_tpu_torch.models import cgrc as cgrc_mod
 from coldrec_tpu_torch.models import ncl as ncl_mod
 from coldrec_tpu_torch.models import simgcl as simgcl_mod
+from coldrec_tpu_torch.models import usim as usim_mod
 from coldrec_tpu_torch.models.lightgcn import GraphTables
 from coldrec_tpu_torch.models.mf import MF, MFTrainer
 from coldrec_tpu_torch.ops import spmm as spmm_mod
@@ -245,7 +269,8 @@ from coldrec_tpu_torch.utils.metrics import ranking_evaluation
 # (before it, 457.7 s) and the earlier phases' depth cut to one epoch a
 # model it took 588.1 s, 677.9 s and ~862 s on three H100 machines: the
 # host's share of the run (batches, set-up, the CPU side of the card-vs-CPU
-# checks) varies 1.45x from machine to machine
+# checks) varies 1.45x from machine to machine; the checks' CPU sides now
+# run beside the card phases (``Checks``)
 BUDGET_S = 1000.0
 D = 64  # MF emb_size (BASELINE default)
 K = 20
@@ -371,8 +396,18 @@ RECON_RUNS = (
     ("FSGNN", 1, ()),
 )
 CGRC_CHECK = 2048
+# Phase usim: USIM through the CLI on phase train's split and MF bus at its
+# published widths (max_time 7, k 10, content hidden 150; the action space
+# is the 92,107 users and the stop token), bs 4096 (the 216,136 warm items
+# with training pairs: 53 batches), one epoch (500 in the reference's
+# config; cut for the run's time limit); then one batch step split on the
+# card into its phases, and one step at USIM_CHECK_BS on the card against
+# the CPU (its PPO takes the dense path there, as the JAX rule picks), with
+# the greedy inference of the first USIM_INFER_CHECK cold items.
+USIM_CHECK_BS = 256
+USIM_INFER_CHECK = 2048
 # Models whose float32 steps on the card are held each from the CPU's
-# state (``hold_state``), their float32 free runs logged. SimGCL: its noise
+# state (``load_state``), their float32 free runs logged. SimGCL: its noise
 # takes the sign of each propagated element, so its loss jumps where an
 # element's two sums fall on either side of 0. CCFCRec (Adam at lr 1e-3 on
 # xavier-normal tables of scale ~5e-3) and VBPR (Adagrad at lr 0.05):
@@ -411,6 +446,92 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+class Checks:
+    """The CPU sides of the card-vs-CPU checks, on one worker thread beside
+    the card phases.
+
+    A check runs its card side on the main thread, then hands its CPU side
+    (which depends only on its inputs: the split, the initial weights, the
+    draws) to ``submit``; its ``finish`` (the comparison, the log line, any
+    card steps that start from the CPU's states) runs on the main thread
+    once the CPU side is done: at a phase boundary (``poll``) or at
+    ``join``, before the ``kernels`` line. A CPU side's exception is raised
+    on the main thread there. Until ``start`` every check runs inline, as
+    the CPU rehearsals call the phases. torch's CPU kernels release the
+    GIL; the intra-op threads are split between the worker and the main
+    thread (each thread sets its own)."""
+
+    def __init__(self):
+        self.pool = None
+        self.pending = []  # (name, future, finish)
+        self.cpu_s = {}
+
+    def start(self, worker_threads=None, main_threads=None):
+        n = os.cpu_count() or 1
+        worker = worker_threads or max(1, n // 2)
+        main = main_threads or max(1, n - worker)
+        torch.set_num_threads(main)
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="cpu-checks",
+            initializer=torch.set_num_threads, initargs=(worker,))
+        log(f"  os.cpu_count() {n}: the checks' CPU sides on a worker "
+            f"thread with {worker} intra-op threads, the main thread "
+            f"{main}")
+
+    def submit(self, name: str, cpu_fn, finish) -> None:
+        """Run ``cpu_fn()`` on the worker (inline before ``start``), then
+        ``finish(result, cpu_seconds)`` on the main thread."""
+        def timed():
+            t = time.perf_counter()
+            out = cpu_fn()
+            return out, time.perf_counter() - t
+
+        if self.pool is None:
+            out, secs = timed()
+            self.cpu_s[name] = secs
+            finish(out, secs)
+            return
+        self.pending.append((name, self.pool.submit(timed), finish))
+
+    def poll(self, wait: bool = False) -> None:
+        """Finish the checks whose CPU side is done, in the order they were
+        submitted (with ``wait``, all of them)."""
+        while self.pending:
+            name, fut, finish = self.pending[0]
+            if not (wait or fut.done()):
+                return
+            try:
+                out, secs = fut.result()
+            except BaseException:
+                self.close()
+                raise
+            self.pending.pop(0)
+            self.cpu_s[name] = secs
+            finish(out, secs)
+
+    def join(self) -> None:
+        t = time.perf_counter()
+        n = len(self.pending)
+        self.poll(wait=True)
+        log(f"  checks joined: {n} pending, {time.perf_counter() - t:.2f} s "
+            f"waited; CPU sides (s) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in self.cpu_s.items()))
+        self.close()
+
+    def close(self) -> None:
+        """Drop the pending checks and stop the worker (a CPU side already
+        running ends before the process does)."""
+        for _, fut, _ in self.pending:
+            fut.cancel()
+        self.pending = []
+        if self.pool is not None:
+            self.pool.shutdown(wait=False, cancel_futures=True)
+            self.pool = None
+
+
+CHECKS = Checks()
+
+
 def check_budget(name: str) -> None:
     spent = time.perf_counter() - T0
     if spent > BUDGET_S:
@@ -421,6 +542,7 @@ def run_phase(name: str, fn, *args, **kwargs):
     t = time.perf_counter()
     out = fn(*args, **kwargs)
     log(f"[phase {name}] {time.perf_counter() - t:.2f} s")
+    CHECKS.poll()
     check_budget(name)
     return out
 
@@ -436,6 +558,23 @@ def smi_line(query: str = "name,power.limit") -> str:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def peak_start(device) -> int:
+    """Zero the card's peak memory counter; returns the bytes allocated now,
+    which ``peak_gib`` leaves out (tensors of earlier phases and of the
+    checks still pending)."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def peak_gib(device, base: int) -> float:
+    """GiB allocated at the peak since ``peak_start``, above its ``base``."""
+    if device.type != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated(device) - base) / 2**30
 
 
 def reset_launches() -> None:
@@ -815,31 +954,47 @@ def val_ndcg(data, ue, ie, device, k=K):
 
 def step_parity(device, data, d, bs, steps=STEP_CHECK, seed=0):
     """``steps`` MF steps on ``device`` and on the CPU from the same tables
-    and the same host batches. Returns (max loss rel err, max table abs err,
-    elements beyond STEP_ATOL, elements)."""
+    and the same host batches, the CPU's on ``CHECKS``' worker; at its
+    finish the check is logged and held: loss max rel err, table max abs
+    err and the elements beyond STEP_ATOL."""
+    device = torch.device(device)
     tables = MF(data.user_num, data.item_num, d, seed=seed, device="cpu")
     init = {k: v.detach().numpy() for k, v in
             zip(("user_emb", "item_emb"), tables.forward_tables())}
-    trainers = [MFTrainer(Config(default_args(
+    card, cpu = [MFTrainer(Config(default_args(
         model="MF", emb_size=d, bs=bs, seed=seed, save_emb=False,
         device=str(dev)), data), init_params=init)
         for dev in (device, torch.device("cpu"))]
-    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
-    losses = []
-    for _, batch in zip(range(steps), batches):
-        losses.append([float(t.train_step(t.upload(batch)))
-                       for t in trainers])
-    losses = np.asarray(losses)
-    loss_err = float(np.max(np.abs(losses[:, 0] - losses[:, 1])
-                            / np.abs(losses[:, 1])))
-    worst, over, numel = 0.0, 0, 0
-    for a, b in zip(trainers[0].model.forward_tables(),
-                    trainers[1].model.forward_tables()):
-        diff = (a.detach().cpu() - b.detach()).abs()
-        worst = max(worst, float(diff.max()))
-        over += int((diff > STEP_ATOL).sum())
-        numel += diff.numel()
-    return loss_err, worst, over, numel
+    batches = list(itertools.islice(pairwise_batches(
+        data, bs, np.random.default_rng(seed)), steps))
+
+    def run(t):
+        losses = [float(t.train_step(t.upload(b))) for b in batches]
+        return losses, [x.detach().cpu() for x in t.model.forward_tables()]
+
+    t0 = time.perf_counter()
+    card_losses, card_tables = run(card)
+    card_s = time.perf_counter() - t0
+
+    def finish(out, cpu_s):
+        cpu_losses, cpu_tables = out
+        a, b = np.asarray(card_losses), np.asarray(cpu_losses)
+        loss_err = float(np.max(np.abs(a - b) / np.abs(b)))
+        worst, over, numel = 0.0, 0, 0
+        for x, y in zip(card_tables, cpu_tables):
+            diff = (x - y).abs()
+            worst = max(worst, float(diff.max()))
+            over += int((diff > STEP_ATOL).sum())
+            numel += diff.numel()
+        log(f"  {steps} steps {device.type} vs cpu ({device.type} side "
+            f"{card_s:.2f} s, cpu side {cpu_s:.2f} s): loss max rel err "
+            f"{loss_err:.3e}, tables max abs err {worst:.3e}, {over} of "
+            f"{numel} elements beyond {STEP_ATOL}")
+        if not (loss_err <= STEP_LOSS_RTOL and worst <= STEP_MAX_ERR
+                and over <= STEP_FLIPS * numel):
+            raise AssertionError("the card's steps disagree with the CPU's")
+
+    CHECKS.submit("MF steps", lambda: run(cpu), finish)
 
 
 def write_split(root, ds, pairs, seed, content_dim, content=None,
@@ -966,14 +1121,7 @@ def train_run(device, n_users, n_items, n_inter, d=D, epochs=2, bs=4096,
         raise AssertionError(f"validation left the kernel unlaunched: "
                              f"{launches}, test {test_launches}")
 
-    t = time.perf_counter()
-    loss_err, worst, over, numel = step_parity(device, data, d, bs, steps)
-    log(f"  {steps} steps {device.type} vs cpu ({time.perf_counter() - t:.2f}"
-        f" s): loss max rel err {loss_err:.3e}, tables max abs err "
-        f"{worst:.3e}, {over} of {numel} elements beyond {STEP_ATOL}")
-    if not (loss_err <= STEP_LOSS_RTOL and worst <= STEP_MAX_ERR
-            and over <= STEP_FLIPS * numel):
-        raise AssertionError("the card's steps disagree with the CPU's")
+    step_parity(device, data, d, bs, steps)
     return launches
 
 
@@ -1016,8 +1164,8 @@ def log_epochs(evs):
             f"{e['train_s']:.3f} s ({e['batches'] / e['train_s']:.1f} "
             f"steps/s): host batches {e['host_s']:.3f} s, upload "
             f"{e['upload_s']:.3f} s, step enqueue {e['step_host_s']:.3f} s, "
-            f"device step {e['step_device_s']:.3f} s; validation "
-            f"{e['validation_s']:.3f} s")
+            f"device step {e['step_device_s']:.3f} s; eval tables "
+            f"{e['refresh_s']:.3f} s; validation {e['validation_s']:.3f} s")
     losses = [x for e in evs if e["event"] == "epoch" for x in e["losses"]]
     if not losses or not np.isfinite(losses).all():
         raise AssertionError(f"non-finite or no batch losses: {losses[:5]}")
@@ -1085,35 +1233,45 @@ def noise_walked(name: str) -> bool:
                                            or ".fc1." in name))
 
 
-def bx_trainer(model, device, data, root, d, bs, seed):
+def bx_trainer(model, device, data, root, d, bs, seed, **flags):
     """``model``'s trainer on ``device`` over phase train's item-cold split
-    (its bus under ``root/emb``), writing no bus."""
+    (its bus under ``root/emb``), writing no bus; ``flags`` set the
+    model's own."""
     return TRAINERS[model](Config(default_args(
         model=model, dataset="bx_synth", cold_object="item", emb_size=d,
         bs=bs, seed=seed, save_emb=False, emb_dir=os.path.join(root, "emb"),
-        device=str(device)), data))
+        device=str(device), **flags), data))
 
 
-def _weights_gap(model, ref) -> float:
-    """The largest relative norm gap between two modules' weights, the
-    noise-walked ones left out."""
-    ref_params = dict(ref.named_parameters())
+def _params(model) -> dict:
+    """A module's named parameters, detached copies on the host."""
+    return {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+
+
+def _weights_gap(got: dict, ref: dict) -> float:
+    """The largest relative norm gap between the named weights ``got``
+    and ``ref``, the noise-walked ones left out."""
     gap = 0.0
-    for name, p in model.named_parameters():
+    for name, p in got.items():
         if noise_walked(name):
             continue
-        want = ref_params[name].detach()
+        want = ref[name]
         gap = max(gap, float((p.detach().cpu() - want).norm()
                              / want.norm().clamp_min(1e-30)))
     return gap
 
 
-def hold_state(trainers, ref) -> None:
-    """Start each of ``trainers`` from ``ref``'s weights and optimizer
-    state: the held step of a card-vs-CPU check."""
-    for t in trainers:
-        t.model.load_state_dict(ref.model.state_dict())
-        t.optimizer.load_state_dict(copy.deepcopy(ref.optimizer.state_dict()))
+def snapshot(t) -> tuple:
+    """Trainer ``t``'s weights and optimizer state, copied."""
+    return (copy.deepcopy(t.model.state_dict()),
+            copy.deepcopy(t.optimizer.state_dict()))
+
+
+def load_state(t, state) -> None:
+    """Start trainer ``t`` from a ``snapshot``: the held step of a
+    card-vs-CPU check."""
+    t.model.load_state_dict(state[0])
+    t.optimizer.load_state_dict(copy.deepcopy(state[1]))
 
 
 def as_float64(t) -> None:
@@ -1128,20 +1286,23 @@ def as_float64(t) -> None:
 
 
 def cold_step_parity(device, data, root, model, d=D, bs=4096,
-                     steps=STEP_CHECK, seed=0, synced=False, float64=False):
+                     steps=STEP_CHECK, seed=0, synced=False, float64=False,
+                     on_done=None):
     """``steps`` steps of ``model`` on ``device`` and on the CPU from the
     same weights and the model's own batches (DropoutNet: the same rows
     dropped, M2VAE: the same normals, drawn once on the host), in float32
-    or (``float64``) on both devices in float64. Returns {"free": (loss max
-    rel err, weights max relative norm gap without the noise-walked
-    weights, eval tables of the card's final weights and state on both
-    devices: max abs err over the table scale)} and, with ``synced``,
-    "synced": (loss max rel err, weights gap) of a third trainer on
-    ``device`` that starts every step from the CPU trainer's state, its gap
-    taken after each step."""
+    or (``float64``) on both devices in float64. The card's steps run here;
+    the CPU's go to ``CHECKS``' worker. At the finish ``on_done`` gets
+    {"free": (loss max rel err, weights max relative norm gap without the
+    noise-walked weights, eval tables of the card's final weights and state
+    on both devices: max abs err over the table scale), "card_s", "cpu_s"}
+    and, with ``synced``, "synced": (loss max rel err, weights gap) of a
+    third trainer on ``device`` that starts every step from the CPU
+    trainer's state (recorded by the worker), its gap taken after each
+    step."""
     device = torch.device(device)
-    cpu = torch.device("cpu")
-    devs = (device, cpu) + ((device,) if synced else ())
+    cpu_dev = torch.device("cpu")
+    devs = (device, cpu_dev) + ((device,) if synced else ())
     trainers = [bx_trainer(model, dev, data, root, d, bs, seed)
                 for dev in devs]
     for t in trainers[1:]:
@@ -1149,48 +1310,81 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
     if float64:
         for t in trainers:
             as_float64(t)
-    held = trainers[2:]
+    card, cpu, held = trainers[0], trainers[1], trainers[2:]
     gen = torch.Generator().manual_seed(seed)
-    trainers[1].host_rng = np.random.default_rng(seed)
-    batches = trainers[1].batches()
-    losses, held_gap = [], 0.0
-    for _, batch in zip(range(steps), batches):
+    cpu.host_rng = np.random.default_rng(seed)
+    work = []
+    for _, batch in zip(range(steps), cpu.batches()):
         kw = {}
         if model == "M2VAE":
-            kw = {"draws": trainers[1].draw(len(batch["user"]))}
+            kw = {"draws": cpu.draw(len(batch["user"]))}
         if model == "DropoutNet":
             n = len(batch["user"])
-            n_zero = int(n * trainers[0].n_dropout)
+            n_zero = int(n * card.n_dropout)
             masks = []
             for _ in range(2):
                 m = torch.ones(n)
                 m[torch.randperm(n, generator=gen)[:n_zero]] = 0.0
                 masks.append(m)
             kw = {"masks": tuple(masks)}
-        hold_state(held, trainers[1])
-        losses.append([float(t.train_step(t.upload(batch), **_on(kw, t)))
-                       for t in trainers])
-        for t in held:
-            held_gap = max(held_gap, _weights_gap(t.model,
-                                                  trainers[1].model))
-    losses = np.asarray(losses)
-    err = np.abs(losses - losses[:, 1:2]) / np.abs(losses[:, 1:2])
-    gap = _weights_gap(trainers[0].model, trainers[1].model)
-    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+        work.append((batch, kw))
     if model == "M2VAE":  # the cold rows' eval draw, one on both devices
-        normal = trainers[1].eval_normal(trainers[1].cold_idx.shape[0])
-        trainers[0].eval_normal = lambda n: normal.to(device)
-    table_err = 0.0
-    for t in trainers[:2]:
+        normal = cpu.eval_normal(cpu.cold_idx.shape[0])
+        card.eval_normal = lambda n: normal.to(device)
+        cpu.eval_normal = lambda n: normal
+
+    def step(t, batch, kw):
+        return float(t.train_step(t.upload(batch), **_on(kw, t)))
+
+    def tables(t):
         t.refresh_tables()
-    for a, b in zip((trainers[0].user_emb, trainers[0].item_emb),
-                    (trainers[1].user_emb, trainers[1].item_emb)):
-        table_err = max(table_err, float((a.cpu() - b).abs().max()
-                                         / b.abs().max()))
-    out = {"free": (float(err[:, 0].max()), gap, table_err)}
-    if synced:
-        out["synced"] = (float(err[:, 2].max()), held_gap)
-    return out
+        return [x.detach().cpu() for x in (t.user_emb, t.item_emb)]
+
+    t0 = time.perf_counter()
+    card_losses = [step(card, b, kw) for b, kw in work]
+    card_state = copy.deepcopy(card.model.state_dict())
+    card_params = _params(card.model)
+    card_tables = tables(card)
+    card_s = time.perf_counter() - t0
+    del card, trainers  # the held trainers alone stay on the card
+
+    def cpu_side():
+        states, losses = [], []
+        for b, kw in work:
+            if synced:
+                states.append(snapshot(cpu))
+            losses.append(step(cpu, b, kw))
+        final = _params(cpu.model)
+        if synced:
+            states.append(snapshot(cpu))
+        cpu.model.load_state_dict(card_state)
+        return losses, final, states, tables(cpu)
+
+    def finish(out, cpu_s):
+        cpu_losses, final, states, cpu_tables = out
+        a, b = np.asarray(card_losses), np.asarray(cpu_losses)
+        table_err = max(float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip(card_tables, cpu_tables))
+        res = {"free": (float(np.max(np.abs(a - b) / np.abs(b))),
+                        _weights_gap(card_params, final), table_err),
+               "card_s": card_s, "cpu_s": cpu_s}
+        if synced:
+            t1 = time.perf_counter()
+            err, gap = 0.0, 0.0
+            for i, (batch, kw) in enumerate(work):
+                for t in held:
+                    load_state(t, states[i])
+                    loss = step(t, batch, kw)
+                    err = max(err, abs(loss - cpu_losses[i])
+                              / abs(cpu_losses[i]))
+                    gap = max(gap, _weights_gap(
+                        dict(t.model.named_parameters()), states[i + 1][0]))
+            res["synced"] = (err, gap)
+            res["card_s"] += time.perf_counter() - t1
+        on_done(res)
+
+    name = f"{model} steps" + (" float64" if float64 else "")
+    CHECKS.submit(name, cpu_side, finish)
 
 
 def _on(kw: dict, t) -> dict:
@@ -1465,39 +1659,49 @@ def check_knn_calls(model, calls, device) -> None:
 
 
 def hold_cold_steps(device, data, root, model, d, bs, steps, seed) -> None:
-    """``cold_step_parity`` of ``model``, logged and held: losses within
-    STEP_LOSS_RTOL, weights within COLD_NORM_RTOL in relative norm, the
-    eval tables of one set of weights within STEP_LOSS_RTOL. A model of
-    SYNCED_STEPS is held on its float32 steps from the CPU's state (loss
-    and weights) and on its free run in float64 (the whole rule); its
+    """``cold_step_parity`` of ``model``, logged and held at its finish:
+    losses within STEP_LOSS_RTOL, weights within COLD_NORM_RTOL in relative
+    norm, the eval tables of one set of weights within STEP_LOSS_RTOL. A
+    model of SYNCED_STEPS is held on its float32 steps from the CPU's state
+    (loss and weights) and on its free run in float64 (the whole rule); its
     float32 free run is logged."""
-    t = time.perf_counter()
     synced = model in SYNCED_STEPS
-    r = cold_step_parity(device, data, root, model, d, bs, steps, seed,
-                         synced)
+    results = {}
 
     def text(loss_err, gap, table_err):
         return (f"loss max rel err {loss_err:.3e}, weights max relative "
                 f"norm gap {gap:.3e}, eval tables of one set of weights max "
                 f"rel err {table_err:.3e}")
 
-    held = [r["free"]]
-    line = f"{text(*r['free'])}"
+    def done(key, r):
+        results[key] = r
+        if len(results) < (2 if synced else 1):
+            return
+        r = results["f32"]
+        held = [r["free"]]
+        line = f"{text(*r['free'])}"
+        if synced:
+            r64 = results["f64"]
+            held = [(*r["synced"], r["free"][2]), r64["free"]]
+            line += (f"; each float32 step from the CPU's state: loss max "
+                     f"rel err {r['synced'][0]:.3e}, weights gap "
+                     f"{r['synced'][1]:.3e}; free-running in float64: "
+                     f"{text(*r64['free'])}")
+        dev = torch.device(device).type
+        sides = "; ".join(f"{k}: {dev} side {v['card_s']:.2f} s, cpu side "
+                          f"{v['cpu_s']:.2f} s" for k, v in results.items())
+        log(f"  {model}: {steps} steps {dev} vs cpu ({sides}): {line}")
+        for loss_err, gap, table_err in held:
+            if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
+                    and table_err <= STEP_LOSS_RTOL):
+                raise AssertionError(f"{model}: the card's steps disagree "
+                                     "with the CPU's")
+
+    cold_step_parity(device, data, root, model, d, bs, steps, seed, synced,
+                     on_done=lambda r: done("f32", r))
     if synced:
-        r64 = cold_step_parity(device, data, root, model, d, bs, steps,
-                               seed, float64=True)
-        held = [(*r["synced"], r["free"][2]), r64["free"]]
-        line += (f"; each float32 step from the CPU's state: loss max rel "
-                 f"err {r['synced'][0]:.3e}, weights gap "
-                 f"{r['synced'][1]:.3e}; free-running in float64: "
-                 f"{text(*r64['free'])}")
-    log(f"  {model}: {steps} steps {torch.device(device).type} vs cpu "
-        f"({time.perf_counter() - t:.2f} s): {line}")
-    for loss_err, gap, table_err in held:
-        if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
-                and table_err <= STEP_LOSS_RTOL):
-            raise AssertionError(f"{model}: the card's steps disagree with "
-                                 "the CPU's")
+        cold_step_parity(device, data, root, model, d, bs, steps, seed,
+                         float64=True, on_done=lambda r: done("f64", r))
 
 
 # ----------------------------------------------- the reconstruction models
@@ -1542,20 +1746,20 @@ def recon_run(device, root, ds="bx_synth", runs=RECON_RUNS, d=D, bs=4096,
 def cgrc_topk_check(device, data, root, d=D, bs=4096, seed=0,
                     n_check=CGRC_CHECK):
     """CGRC's top-k users on ``device`` against the same function on the CPU
-    from the same weights and inputs, for the first ``n_check`` cold items:
-    rows id-equal, or differing only where the logits at both lists agree
-    position by position within GAP_REL of the row's largest. The card's
-    peak memory is read over the trainer's set-up, which evaluates once
-    (the top-k users of every cold item, the Ĝ rebuild, the propagation;
-    their seconds are the CLI run's ``cgrc_eval`` events)."""
+    (on ``CHECKS``' worker) from the same weights and inputs, for the first
+    ``n_check`` cold items: rows id-equal, or differing only where the
+    logits at both lists agree position by position within GAP_REL of the
+    row's largest. The card's peak memory is read over the trainer's
+    set-up, which evaluates once (the top-k users of every cold item, the Ĝ
+    rebuild, the propagation; their seconds are the CLI run's ``cgrc_eval``
+    events)."""
     device = torch.device(device)
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    base = peak_start(device)
     tm = bx_trainer("CGRC", device, data, root, d, bs, seed)
-    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    peak = peak_gib(device, base)
     m = tm.model
     k = min(tm.topk, data.user_num)
+    t0 = time.perf_counter()
     with torch.no_grad():
         x_all = tm.item_x()
         h_u = tm.propagate_frozen(tm.full_graph, m.user_emb, x_all, tm.Lg)
@@ -1563,25 +1767,33 @@ def cgrc_topk_check(device, data, root, d=D, bs=4096, seed=0,
         got = m.topk_users(h_u, x_cold, k).cpu()
         cpu_model = copy.deepcopy(m).cpu()
         h_u, x_cold = h_u.cpu(), x_cold.cpu()
-        t = time.perf_counter()
-        ref = cpu_model.topk_users(h_u, x_cold, k)
-        cpu_s = time.perf_counter() - t
-        bad = (got != ref).any(dim=1).nonzero().squeeze(1)
-        hu, xi = cpu_model.edge_parts(h_u, x_cold)
-        b1, w2, b2 = cpu_model.mlp_tail()
-        for r in bad.tolist():
-            sa, sb = (cgrc_mod.block_logits(xi[r:r + 1] + b1, hu[ids], w2,
-                                            b2)[0]
-                      for ids in (got[r], ref[r]))
-            scale = max(float(sa.abs().max()), float(sb.abs().max()))
-            if float((sa - sb).abs().max()) > GAP_REL * scale + 1e-30:
-                raise AssertionError(f"CGRC cold item {r}: top users "
-                                     f"{got[r][:6]} vs {ref[r][:6]}")
-    log(f"  CGRC: peak card memory {peak:.2f} GiB over a set-up with one "
-        f"evaluation; top-{k} users of the first {got.shape[0]} cold items "
-        f"x {data.user_num} users on the {device.type} against the CPU's "
-        f"({cpu_s:.2f} s): {got.shape[0] - bad.shape[0]} rows id-equal, the "
-        "others near-ties")
+    card_s = time.perf_counter() - t0
+
+    def cpu_side():
+        with torch.no_grad():
+            ref = cpu_model.topk_users(h_u, x_cold, k)
+            bad = (got != ref).any(dim=1).nonzero().squeeze(1)
+            hu, xi = cpu_model.edge_parts(h_u, x_cold)
+            b1, w2, b2 = cpu_model.mlp_tail()
+            for r in bad.tolist():
+                sa, sb = (cgrc_mod.block_logits(xi[r:r + 1] + b1, hu[ids],
+                                                w2, b2)[0]
+                          for ids in (got[r], ref[r]))
+                scale = max(float(sa.abs().max()), float(sb.abs().max()))
+                if float((sa - sb).abs().max()) > GAP_REL * scale + 1e-30:
+                    raise AssertionError(f"CGRC cold item {r}: top users "
+                                         f"{got[r][:6]} vs {ref[r][:6]}")
+        return int(bad.shape[0])
+
+    def finish(n_bad, cpu_s):
+        log(f"  CGRC: peak card memory {peak:.2f} GiB over a set-up with "
+            f"one evaluation; top-{k} users of the first {got.shape[0]} cold"
+            f" items x {data.user_num} users on the {device.type} against "
+            f"the CPU's ({device.type} side {card_s:.2f} s, cpu side "
+            f"{cpu_s:.2f} s): {got.shape[0] - n_bad} rows id-equal, the "
+            "others near-ties")
+
+    CHECKS.submit("CGRC top-k users", cpu_side, finish)
 
 
 def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
@@ -1631,6 +1843,212 @@ def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
         f"softmax and sums {out['gat_ms']:.3f} ms "
         f"({100 * out['gat_share']:.1f}%)")
     return out
+
+
+# -------------------------------------------------------------------- USIM
+def usim_run(device, root, ds="bx_synth", d=D, bs=4096, topN=(10, 20),
+             seed=0, epochs=1, check_bs=USIM_CHECK_BS,
+             n_infer=USIM_INFER_CHECK, usim_flags=None):
+    """Phase usim: USIM through the CLI on phase train's split and MF bus,
+    checked by ``graph_cli`` (launches, fallback, peak memory, each split's
+    route, lists held to the plain path), each epoch's split logged (host
+    batches, step enqueue, device step, inference of the cold rows,
+    validation; the test); then one batch step split into its phases
+    beside their bounds (``usim_step_split``) and the card-vs-CPU step
+    (``usim_check``). ``usim_flags`` ({flag: value}) narrow the model for
+    the CPU rehearsal. Returns the launches and a trainer at ``bs`` for
+    ``usim_step_split``, which ``main`` runs after the checks are joined:
+    the worker's CPU sides would slow the host's enqueue while it is
+    timed."""
+    device = torch.device(device)
+    usim_flags = dict(usim_flags or {})
+    flags = [x for k, v in usim_flags.items() for x in (f"--{k}", str(v))]
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    expected = expected_routes(data, "item", bs, max(topN), device)
+    r = graph_cli(device, root, ds, "USIM", epochs, flags, data, d, bs,
+                  seed, topN, expected=expected)
+    end = [e for e in r["events"] if e["event"] == "run_end"][0]
+    for e in r["epochs"]:
+        log(f"    USIM epoch {e['epoch']}: {e['batches']} batches of {bs}: "
+            f"host batches {e['host_s']:.3f} s, step enqueue "
+            f"{e['step_host_s']:.3f} s, device step "
+            f"{e['step_device_s']:.3f} s, inference of "
+            f"{data.mapped_cold_item_idx.shape[0]} cold items "
+            f"{e['refresh_s']:.3f} s, validation {e['validation_s']:.3f} s;"
+            f" three-way test {end['test_seconds']:.3f} s")
+    usim_check(device, data, root, d, check_bs, seed, n_infer, usim_flags)
+    return r["launches"], bx_trainer("USIM", device, data, root, d, bs, seed,
+                                     **usim_flags)
+
+
+def usim_bounds(n_user, d, bs, max_time, n_ppo, blk):
+    """{phase: (products, plane passes, rows)} of a USIM batch step as the
+    code runs it, and the bound of each (``sweep_bound``): a product is
+    2 * rows * n_user * d fp32 operations, a pass reads or writes one
+    (rows, n_user) fp32 plane."""
+    steps = usim_mod.ROLLOUTS * max_time
+    t_rows = steps * bs
+    phases = {
+        # z and the target score of the batch's items, each with a top-k
+        "hoisted top-ks": (2, 4, bs),
+        # each step: sim (top-k) and z (logsumexp, max, argmax)
+        "rollouts": (2 * steps, 4 * steps, bs),
+        # the target actor's z over every transition, its logsumexp
+        "ppo targets": (1, 2, t_rows),
+        **{f"ppo {i + 1}": (2, 4, t_rows) for i in range(n_ppo)},
+        "termination": (0, 0, bs),
+        # each step: z, its logsumexp and max
+        "inference chunk": (max_time, 2 * max_time, blk),
+    }
+    out = {}
+    for name, (prods, passes, rows) in phases.items():
+        flops = prods * 2.0 * rows * n_user * d
+        bytes_moved = passes * 4.0 * rows * n_user
+        ms, by = sweep_bound(flops, bytes_moved)
+        out[name] = {"flops": flops, "bytes": bytes_moved, "bound_ms": ms,
+                     "bound_by": by}
+    return out
+
+
+def usim_step_split(tm, seed=0, blk=4096):
+    """One batch step of USIM trainer ``tm`` (after one warm-up step)
+    split into its phases by CUDA events at the model's marks (the host
+    clock on the CPU): the hoisted top-ks, the rollouts, the PPO targets,
+    each PPO iteration and the termination step, each phase's host enqueue
+    beside its device time and its bound; then the greedy inference of one
+    ``blk``-item chunk of cold items; the card's peak memory over the
+    step. Returns {phase: numbers}."""
+    device, bs, d = tm.device, tm.batch_size, tm.emb_size
+    cuda = device.type == "cuda"
+    m = tm.model
+    tm.host_rng = np.random.default_rng(seed)
+    batches = [tm.upload(b) for _, b in zip(range(2), tm.batches())]
+    tm.train_step(batches[0])
+    _sync(device)
+    base = peak_start(device)
+    m.marks = []
+    t0 = time.perf_counter()
+    tm.train_step(batches[-1])
+    enqueue_s = time.perf_counter() - t0
+    _sync(device)
+    marks, m.marks = m.marks, None
+    peak = peak_gib(device, 0)  # the trainer's tables and content with it
+    step_peak = peak_gib(device, base)
+    content = m.content[tm.cold_idx[:blk]]
+    bounds = usim_bounds(m.n_user, d, bs, m.max_time, m.n_ppo,
+                         content.shape[0])
+    out = {}
+    for (_, h0, e0), (name, h1, e1) in zip(marks[:-1], marks[1:]):
+        dev_ms = e0.elapsed_time(e1) if cuda else (h1 - h0) * 1e3
+        out[name] = {"ms": dev_ms, "host_ms": (h1 - h0) * 1e3,
+                     **bounds[name]}
+    out["inference chunk"] = {
+        "ms": erk.time_ms(lambda: m._infer(m.actor, content), 3, device,
+                          repeats=1), **bounds["inference chunk"]}
+    t_rows = usim_mod.ROLLOUTS * m.max_time * bs
+    step_ms = sum(v["ms"] for k, v in out.items() if k != "inference chunk")
+    bound_ms = sum(v["bound_ms"] for k, v in out.items()
+                   if k != "inference chunk")
+    log(f"  USIM step split at bs {bs} x {m.n_user} actions, d={d} "
+        f"(max_time {m.max_time}, k {m.k}, {m.n_ppo} PPO iterations over "
+        f"{t_rows} transitions, chunked: "
+        f"{t_rows * m.n_user > m._DENSE_OPT_ELEMS}"
+        f"): step {step_ms:.3f} ms on the device, {enqueue_s * 1e3:.3f} ms "
+        f"of host enqueue (to its return), bound {bound_ms:.3f} ms; peak "
+        f"card memory {peak:.2f} GiB, {step_peak:.2f} GiB of it the step's")
+    for name, v in out.items():
+        log(f"    {name}: {v['ms']:.3f} ms"
+            + (f" (host {v['host_ms']:.3f} ms)" if "host_ms" in v else "")
+            + f", {100 * v['ms'] / step_ms:.1f}% of the step; bound "
+            f"{v['bound_ms']:.3f} ms ({v['bound_by']}: {v['flops']:.3e} "
+            f"FLOP, {v['bytes']:.3e} B)")
+    out["step"] = {"ms": step_ms, "enqueue_ms": enqueue_s * 1e3,
+                   "bound_ms": bound_ms, "peak_gib": peak,
+                   "step_peak_gib": step_peak}
+    return out
+
+
+def usim_check(device, data, root, d=D, bs=USIM_CHECK_BS, seed=0,
+               n_infer=USIM_INFER_CHECK, usim_flags=None):
+    """One USIM batch step on ``device`` and on the CPU (on ``CHECKS``'
+    worker) from the same weights and the same draws (drawn on the host),
+    at full width, after the greedy inference of the first ``n_infer``
+    cold items from the same weights. Held at the finish: the rollout
+    actions equal (a difference is logged with the CPU's top-2 gap of the
+    noisy logits at that row), the losses within STEP_LOSS_RTOL, the nets
+    within COLD_NORM_RTOL in relative norm, the inference's actions equal
+    and its states within STEP_LOSS_RTOL of their scale."""
+    device = torch.device(device)
+    card = bx_trainer("USIM", device, data, root, d, bs, seed,
+                      **(usim_flags or {}))
+    m = card.model
+    cpu_model = copy.deepcopy(m).cpu()
+    cpu_opts = usim_mod.make_optimizers(cpu_model, card.args)
+    card.host_rng = np.random.default_rng(seed)
+    batch = next(iter(card.batches()))
+    draws = usim_mod.draw_usim(cpu_model, bs,
+                               torch.Generator().manual_seed(seed), "cpu")
+    cold = card.cold_idx[:n_infer].cpu()
+
+    def run(model, opts, dev):
+        model.trace = []
+        state, acts = model._infer(model.actor,
+                                   model.content[cold.to(dev)],
+                                   with_actions=True)
+        out = model._batch_step(
+            torch.as_tensor(batch["items"], device=dev),
+            torch.as_tensor(batch["weight"], device=dev),
+            {k: v.to(dev) for k, v in draws.items()}, *opts)
+        trace, model.trace = model.trace, None
+        return {"state": state.cpu(), "infer_actions": acts.cpu(),
+                "actions": out["actions"].cpu(),
+                "losses": out["losses"].cpu(),
+                "trace": [x.cpu() for x in trace],
+                "params": _params(model)}
+
+    t0 = time.perf_counter()
+    got = run(m, (card.actor_opt, card.critic_opt), device)
+    card_s = time.perf_counter() - t0
+    max_time, n_user = m.max_time, m.n_user
+    del card, m
+
+    def finish(ref, cpu_s):
+        diff = (got["actions"] != ref["actions"]).nonzero()
+        if diff.numel():
+            r, t, b = diff[0].tolist()
+            top2 = ref["trace"][r * max_time + t][b].topk(2).values
+            log(f"  USIM: rollout {r} step {t} row {b}: action "
+                f"{int(got['actions'][r, t, b])} on the {device.type}, "
+                f"{int(ref['actions'][r, t, b])} on the CPU; the CPU's "
+                f"top-2 noisy logits {top2.tolist()} (gap "
+                f"{float(top2[0] - top2[1]):.3e}); {diff.shape[0]} "
+                "differing actions in all")
+        a, b_ = got["losses"], ref["losses"]
+        loss_err = float(((a - b_).abs() / b_.abs()).max())
+        gap = max(float((got["params"][k] - v).norm()
+                        / v.norm().clamp_min(1e-30))
+                  for k, v in ref["params"].items())
+        acts_equal = torch.equal(got["infer_actions"], ref["infer_actions"])
+        state_err = float((got["state"] - ref["state"]).abs().max()
+                          / ref["state"].abs().max())
+        log(f"  USIM: one batch step of {bs} items x {n_user} actions "
+            f"{device.type} vs cpu ({device.type} side {card_s:.2f} s, cpu "
+            f"side {cpu_s:.2f} s): rollout actions "
+            f"{'equal' if not diff.numel() else 'DIFFER'} "
+            f"({got['actions'].numel()}, "
+            f"{int((got['actions'] == n_user - 1).sum())} stops); losses "
+            f"max rel err {loss_err:.3e}; nets max relative norm gap "
+            f"{gap:.3e}; greedy inference of {cold.shape[0]} cold items: "
+            f"actions {'equal' if acts_equal else 'DIFFER'}, states max "
+            f"rel err {state_err:.3e}")
+        if not (not diff.numel() and loss_err <= STEP_LOSS_RTOL
+                and gap <= COLD_NORM_RTOL and acts_equal
+                and state_err <= STEP_LOSS_RTOL):
+            raise AssertionError("USIM: the card's step disagrees with the "
+                                 "CPU's")
+
+    CHECKS.submit("USIM step", lambda: run(cpu_model, cpu_opts,
+                                           torch.device("cpu")), finish)
 
 
 def signal_run(device, root, n_users=ML[0], n_items=ML[1], nnz=ML[2],
@@ -1734,14 +2152,13 @@ def graph_cli(device, root, ds, model, epochs, flags, data, d=D, bs=4096,
     top = str(max(topN))
     ret.apply_exact_fallback.rows = 0
     ret.apply_exact_fallback.seconds = 0.0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+    base = peak_start(device)
     payload, launches, evs, secs = cli_run(device, root, ds, model, epochs,
                                            flags, d, bs, seed, topN,
                                            cold_object=cold_object)
     fb_rows = ret.apply_exact_fallback.rows
     fb_s = ret.apply_exact_fallback.seconds
-    peak = torch.cuda.max_memory_allocated(device) / 2**30 if cuda else 0.0
+    peak = peak_gib(device, base)
     first, last = log_epochs(evs)
     end = [e for e in evs if e["event"] == "run_end"][0]
     bus = load_embeddings(os.path.join(root, "emb"), ds, cold_object, model)
@@ -1968,12 +2385,12 @@ def graph_user_run(device, root, n_users, n_items, n_inter,
     return out
 
 
-def _tables_gap(a, b):
-    """(max abs err, elements beyond STEP_ATOL, elements) between the
-    parameters of two modules."""
+def _tables_gap(got: dict, ref: dict):
+    """(max abs err, elements beyond STEP_ATOL, elements) between the named
+    tensors ``got`` and ``ref``."""
     worst, over, numel = 0.0, 0, 0
-    for p, q in zip(a.parameters(), b.parameters()):
-        diff = (p.detach().cpu() - q.detach().cpu()).abs()
+    for name, p in got.items():
+        diff = (p.detach().cpu() - ref[name].detach().cpu()).abs()
         worst = max(worst, float(diff.max()))
         over += int((diff > STEP_ATOL).sum())
         numel += diff.numel()
@@ -1983,14 +2400,17 @@ def _tables_gap(a, b):
 @contextlib.contextmanager
 def perturb_signs(active=True):
     """Yields a list that gets sign(e) (int8, on the host) of every
-    perturbed layer of SimGCL's forwards run inside the block: its noise
-    is sign(e) * U * eps, so where two runs' sums of an element fall on
-    either side of 0 their forwards part by up to 2 * eps * U there."""
+    perturbed layer of the SimGCL forwards run inside the block on this
+    thread: its noise is sign(e) * U * eps, so where two runs' sums of an
+    element fall on either side of 0 their forwards part by up to 2 * eps *
+    U there."""
     signs = []
     perturb = simgcl_mod.perturb
+    owner = threading.get_ident()
 
     def recording(ego, eps, noise=None, generator=None):
-        if noise is not None or generator is not None:
+        if ((noise is not None or generator is not None)
+                and threading.get_ident() == owner):
             signs.append(torch.sign(ego.detach()).to(torch.int8).cpu())
         return perturb(ego, eps, noise, generator)
 
@@ -2003,17 +2423,18 @@ def perturb_signs(active=True):
 
 
 def graph_step_parity(device, data, model, d=D, bs=4096, steps=STEP_CHECK,
-                      seed=0, synced=False):
-    """``steps`` steps of a graph model on ``device`` and on the CPU from
-    the same tables and batches (SimGCL: the same noise, drawn on the host
-    and injected into both). Returns {"free": (loss max rel err, tables max
-    abs err, elements beyond STEP_ATOL, elements)} after the free-running
-    steps and, with ``synced``, "synced": the same of a third trainer on
-    ``device`` that starts every step from the CPU trainer's weights and
-    Adam state (the loss over the steps without a sign flip, the tables
-    after each step), and "flips": [(step, flipped elements, loss rel
-    err)] of the steps in which the two forwards took another sign
-    somewhere (``perturb_signs``).
+                      seed=0, synced=False, on_done=None):
+    """``steps`` steps of a graph model on ``device`` and on the CPU (on
+    ``CHECKS``' worker) from the same tables and batches (SimGCL: the same
+    noise, drawn on the host and injected into both). At the finish
+    ``on_done`` gets {"free": (loss max rel err, tables max abs err,
+    elements beyond STEP_ATOL, elements)} after the free-running steps,
+    "card_s", "cpu_s" and, with ``synced``, "synced": the same of a third
+    trainer on ``device`` that starts every step from the CPU trainer's
+    weights and Adam state (recorded by the worker; the loss over the steps
+    without a sign flip, the tables after each step), and "flips": [(step,
+    flipped elements, loss rel err)] of the steps in which the two
+    forwards took another sign somewhere (``perturb_signs``).
 
     SimGCL's noise takes the sign of each propagated element, so its loss
     jumps where an element's two sums fall on either side of 0: from one
@@ -2026,45 +2447,67 @@ def graph_step_parity(device, data, model, d=D, bs=4096, steps=STEP_CHECK,
     card, cpu, *held = [TRAINERS[model](Config(default_args(
         model=model, emb_size=d, bs=bs, seed=seed, save_emb=False,
         device=str(dev)), data), init_params=params) for dev in devs]
-    batches = pairwise_batches(data, bs, np.random.default_rng(seed))
+    batches = list(itertools.islice(pairwise_batches(
+        data, bs, np.random.default_rng(seed)), steps))
     rng = np.random.default_rng(seed + 7)
     shape = (2, card.n_layers, data.user_num + data.item_num, d)
-    losses, synced_err, synced_gap, flip_steps = [], 0.0, (0.0, 0, 0), []
-    for i, batch in zip(range(steps), batches):
-        kw = {}
-        if model == "SimGCL":
-            kw = {"noise_pair": rng.random(shape, dtype=np.float32)}
+    noises = [{"noise_pair": rng.random(shape, dtype=np.float32)}
+              if model == "SimGCL" else {} for _ in batches]
 
-        def step(t):
-            k = {n: tuple(torch.as_tensor(x, device=t.device) for x in v)
-                 for n, v in kw.items()}
-            return float(t.train_step(t.upload(batch), **k))
+    def step(t, i):
+        k = {n: tuple(torch.as_tensor(x, device=t.device) for x in v)
+             for n, v in noises[i].items()}
+        return float(t.train_step(t.upload(batches[i]), **k))
 
-        hold_state(held, cpu)
-        step_losses, signs = [], []
-        for t in (card, cpu, *held):
-            with perturb_signs(synced and t is not card) as rec:
-                step_losses.append(step(t))
+    t0 = time.perf_counter()
+    card_losses = [step(card, i) for i in range(len(batches))]
+    card_params = _params(card.model)
+    card_s = time.perf_counter() - t0
+    del card
+
+    def cpu_side():
+        losses, states, signs = [], [], []
+        for i in range(len(batches)):
+            if synced:
+                states.append(snapshot(cpu))
+            with perturb_signs(synced) as rec:
+                losses.append(step(cpu, i))
             signs.append(rec)
-        flips = sum(int((a != b).sum()) for a, b in zip(*signs[1:]))
-        losses.append(step_losses[:2])
-        for t, loss in zip(held, step_losses[2:]):
-            err = abs(loss - step_losses[1]) / abs(step_losses[1])
-            if flips:
-                flip_steps.append((i, flips, err))
-            else:
-                synced_err = max(synced_err, err)
-            gap = _tables_gap(t.model, cpu.model)
-            synced_gap = (max(synced_gap[0], gap[0]),
-                          max(synced_gap[1], gap[1]), gap[2])
-    losses = np.asarray(losses)
-    out = {"free": (float(np.max(np.abs(losses[:, 0] - losses[:, 1])
-                                 / np.abs(losses[:, 1]))),
-                    *_tables_gap(card.model, cpu.model))}
-    if synced:
-        out["synced"] = (synced_err, *synced_gap)
-        out["flips"] = flip_steps
-    return out
+        if synced:
+            states.append(snapshot(cpu))
+        return losses, _params(cpu.model), states, signs
+
+    def finish(out, cpu_s):
+        cpu_losses, final, states, cpu_signs = out
+        a, b = np.asarray(card_losses), np.asarray(cpu_losses)
+        res = {"free": (float(np.max(np.abs(a - b) / np.abs(b))),
+                        *_tables_gap(card_params, final)),
+               "card_s": card_s, "cpu_s": cpu_s}
+        if synced:
+            t1 = time.perf_counter()
+            synced_err, synced_gap, flip_steps = 0.0, (0.0, 0, 0), []
+            for i in range(len(batches)):
+                for t in held:
+                    load_state(t, states[i])
+                    with perturb_signs() as rec:
+                        loss = step(t, i)
+                    flips = sum(int((x != y).sum())
+                                for x, y in zip(cpu_signs[i], rec))
+                    err = abs(loss - cpu_losses[i]) / abs(cpu_losses[i])
+                    if flips:
+                        flip_steps.append((i, flips, err))
+                    else:
+                        synced_err = max(synced_err, err)
+                    gap = _tables_gap(dict(t.model.named_parameters()),
+                                      states[i + 1][0])
+                    synced_gap = (max(synced_gap[0], gap[0]),
+                                  max(synced_gap[1], gap[1]), gap[2])
+            res["synced"] = (synced_err, *synced_gap)
+            res["flips"] = flip_steps
+            res["card_s"] += time.perf_counter() - t1
+        on_done(res)
+
+    CHECKS.submit(f"{model} graph steps", cpu_side, finish)
 
 
 def graph_ml_run(device, root, ds="ml_latent", epochs=2, d=D, bs=4096,
@@ -2085,29 +2528,35 @@ def graph_ml_run(device, root, ds="ml_latent", epochs=2, d=D, bs=4096,
                                  ("--layers", "2"), data, d, bs, seed, topN,
                                  expected=expected)["launches"]}
     for model in ("LightGCN", "SimGCL"):
-        t = time.perf_counter()
         synced = model in SYNCED_STEPS
-        res = graph_step_parity(device, data, model, d, bs, steps, seed,
-                                synced=synced)
-        flips = res.pop("flips", [])
-        text = {how: f"loss max rel err {e:.3e}, tables max abs err "
-                     f"{worst:.3e}, {over} of {numel} elements beyond "
-                     f"{STEP_ATOL}"
-                for how, (e, worst, over, numel) in res.items()}
-        log(f"  {model}: {steps} steps {device.type} vs cpu "
-            f"({time.perf_counter() - t:.2f} s): free-running {text['free']}"
-            + (f"; each step from the CPU's state: {steps - len(flips)} "
-               f"steps without a sign flip, {text['synced']} (tables after "
-               f"one step); steps with flips (step, elements, loss rel err) "
-               f"{[(i, n, float(f'{e:.3e}')) for i, n, e in flips]}"
-               if synced else ""))
-        loss_err, worst, over, numel = res["synced" if synced else "free"]
-        limit = STEP_MAX_ERR / steps if synced else STEP_MAX_ERR
-        if not (loss_err <= STEP_LOSS_RTOL and worst <= limit
-                and over <= STEP_FLIPS * numel
-                and 2 * len(flips) <= steps):
-            raise AssertionError(f"{model}: the card's steps disagree with "
-                                 "the CPU's")
+
+        def done(res, model=model, synced=synced):
+            flips = res.pop("flips", [])
+            card_s, cpu_s = res.pop("card_s"), res.pop("cpu_s")
+            text = {how: f"loss max rel err {e:.3e}, tables max abs err "
+                         f"{worst:.3e}, {over} of {numel} elements beyond "
+                         f"{STEP_ATOL}"
+                    for how, (e, worst, over, numel) in res.items()}
+            log(f"  {model}: {steps} steps {device.type} vs cpu "
+                f"({device.type} side {card_s:.2f} s, cpu side "
+                f"{cpu_s:.2f} s): free-running {text['free']}"
+                + (f"; each step from the CPU's state: {steps - len(flips)}"
+                   f" steps without a sign flip, {text['synced']} (tables "
+                   f"after one step); steps with flips (step, elements, "
+                   f"loss rel err) "
+                   f"{[(i, n, float(f'{e:.3e}')) for i, n, e in flips]}"
+                   if synced else ""))
+            loss_err, worst, over, numel = res["synced" if synced
+                                               else "free"]
+            limit = STEP_MAX_ERR / steps if synced else STEP_MAX_ERR
+            if not (loss_err <= STEP_LOSS_RTOL and worst <= limit
+                    and over <= STEP_FLIPS * numel
+                    and 2 * len(flips) <= steps):
+                raise AssertionError(f"{model}: the card's steps disagree "
+                                     "with the CPU's")
+
+        graph_step_parity(device, data, model, d, bs, steps, seed,
+                          synced=synced, on_done=done)
     return out
 
 
@@ -2547,6 +2996,7 @@ def main() -> int:
     built, host = run_phase("build", build_all)
     log(f"  {built.path.name}: nvcc {built.seconds:.2f} s\n{built.ptxas}")
     log(f"  {host[0].name}: {host[1]:.2f} s")
+    CHECKS.start()
 
     errs = [
         run_phase("kernel-bx", kernel_vs_plain, device, 2048, BX[1]),
@@ -2561,6 +3011,8 @@ def main() -> int:
         bf16_launches, _ = run_phase("cold", cold_run, device, root)
         content = run_phase("content", content_run, device, root)
         recon = run_phase("recon", recon_run, device, root)
+        usim_launches, usim_trainer = run_phase("usim", usim_run, device,
+                                                root)
         graph, _ = run_phase("graph", graph_run, device, root)
         graph_user = run_phase("graph-user", graph_user_run, device, root,
                                *BX)
@@ -2575,13 +3027,15 @@ def main() -> int:
         f"{sum(r['fused_sweep'] for r in graph.values())}, graph-user "
         f"{sum(r['fused_sweep'] for r in graph_user.values())}, graph-ml "
         f"{sum(r['fused_sweep'] for r in graph_ml.values())})")
-    content_launches = {name: sum(r[name] for runs in (content, recon)
+    content_launches = {name: sum(r[name] for runs in (content, recon,
+                                                       {"USIM": usim_launches})
                                   for r in runs.values())
                         for name in ("fused_sweep", "merge_parts")}
-    log(f"  knn phase: {knn['launches']} launches; content and recon "
+    log(f"  knn phase: {knn['launches']} launches; content, recon and usim "
         f"phases: {content_launches} launches (fused_sweep: content "
         f"{sum(r['fused_sweep'] for r in content.values())}, recon "
-        f"{sum(r['fused_sweep'] for r in recon.values())})")
+        f"{sum(r['fused_sweep'] for r in recon.values())}, usim "
+        f"{usim_launches['fused_sweep']})")
     knn_sweeps_line = [{
         "shape": tag, "queries": r["queries"], "values": r["values"],
         "d": r["d"], "k": r["k"], "launches": r["launches"]["fused_sweep"],
@@ -2592,6 +3046,9 @@ def main() -> int:
         "library_ms": r["library_s"] * 1e3,
     } for tag, r in knn["shapes"].items()]
     variants = run_phase("variants", variants_run, device)
+    run_phase("checks", CHECKS.join)
+    run_phase("usim-split", usim_step_split, usim_trainer)
+    del usim_trainer
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
     for n, r in ((2048, t), (SERVE_USERS, t512)):
@@ -2677,4 +3134,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        CHECKS.close()

@@ -7,9 +7,8 @@ graph backbones' ``--layers`` is a common flag, default 2). An entry's
 CGRC's and FSGNN's lr, bs, emb_size and epochs, as in the reference's
 ``set_defaults``). Boolean flags
 take "true"/"false" (or no value: true); the (lr, wd) pairs of VBPR, AMR and
-MTPR take "0.05,0" or "[0.05, 0]". The one model of the JAX package that is
-not ported yet, USIM, is refused with the ROADMAP queue item that brings it
-to the port (Queue 1, item 6).
+MTPR take "0.05,0" or "[0.05, 0]". All 26 models of the JAX package are
+ported.
 """
 from __future__ import annotations
 
@@ -124,6 +123,22 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
         "fsgnn_fc_decoder_layers": 2,
         "fsgnn_lfc_cold_side_only": True,
     },
+    "USIM": {
+        "actor_lr": 0.0005,
+        "critic_lr": 0.001,
+        "gamma": 0.99,
+        "usim_max_time": 7,
+        "usim_transition_rate": 0.05,
+        "usim_k": 10,
+        "usim_reward_weight": 0.5,
+        "usim_reward_cost": 0.2,
+        "usim_optimize_batch": 20480,
+        "usim_buffer_max_len": 1024,
+        "usim_content_hidden": 150,
+        "usim_actor_weight_decay": 1e-6,
+        "usim_critic_weight_decay": 1e-6,
+        "usim_mapper_ckpt": "",
+    },
     "DropoutNet": {
         "n_dropout": 0.5,
         "dropoutnet_hidden1": 200,
@@ -160,20 +175,10 @@ MODEL_PARAM_REGISTRY: Dict[str, dict] = {
     },
 }
 
-# ROADMAP.md, Queue 1: the item that ports each model of the JAX package
-# that the port does not run yet
-_QUEUE_ITEM = {"USIM": 6}
-
-
 def require_ported(model: str) -> None:
     """Raise ``ValueError`` unless ``model`` runs in the port."""
     if model in MODEL_PARAM_REGISTRY:
         return
-    if model in _QUEUE_ITEM:
-        raise ValueError(
-            f"model {model!r} is not in the PyTorch port yet: ROADMAP.md "
-            f"Queue 1, item {_QUEUE_ITEM[model]} brings it. Ported: "
-            f"{sorted(MODEL_PARAM_REGISTRY)}")
     raise ValueError(
         f"Invalid model name: {model}. Ported: {sorted(MODEL_PARAM_REGISTRY)}")
 

@@ -15,8 +15,9 @@ VBPR, MetaEmbedding, LARA and GoRec, which read the backbone's tables from
 the embedding bus (``--backbone MF`` or a graph backbone: run it first),
 AMR, which reads VBPR's bus (run VBPR first), KNN, MTPR and CLCRec, which
 train their own tables, and the reconstruction models CCFCRec (its
-``--pretrain`` tables from the bus), M2VAE, CGRC and FSGNN. USIM, the one
-model left, is refused with its ROADMAP item (Queue 1, item 6).
+``--pretrain`` tables from the bus), M2VAE, CGRC and FSGNN, and USIM, the
+RL refinement of the backbone's cold item rows (item cold start only): all
+26 models of the JAX package.
 """
 from __future__ import annotations
 

@@ -1,7 +1,6 @@
 """Model registry (the port's counterpart of ``coldrec_tpu/models/__init__``;
-reference: model/__init__.py AVAILABLE_MODELS). The ported models (25 of
-the 26) map to their trainers; USIM raises ``ValueError`` naming the
-ROADMAP item that brings it."""
+reference: model/__init__.py AVAILABLE_MODELS): all 26 models map to their
+trainers; any other name raises ``ValueError``."""
 from ..config.model_params import require_ported
 from .agnn import AGNNTrainer
 from .aldi import ALDITrainer
@@ -26,6 +25,7 @@ from .mtpr import MTPRTrainer
 from .ncl import NCLTrainer
 from .ngcf import NGCFTrainer
 from .simgcl import SimGCLTrainer
+from .usim import USIMTrainer
 from .vbpr import VBPRTrainer
 from .xsimgcl import XSimGCLTrainer
 
@@ -55,6 +55,7 @@ TRAINERS = {
     "M2VAE": M2VAETrainer,
     "CGRC": CGRCTrainer,
     "FSGNN": FSGNNTrainer,
+    "USIM": USIMTrainer,
 }
 
 __all__ = ["MF", "MFTrainer", "TRAINERS", "model_factory"]

@@ -25,8 +25,9 @@ batch is built on the host, copied through pinned memory with
 ``non_blocking=True`` and stepped without a synchronisation; the loss is
 read back every 50 batches for the print and once per epoch for the record.
 Each epoch's time is split into host batch building, upload, the step (host
-enqueue and, on the card, device time from CUDA events) and validation,
-kept in ``epoch_stats`` and sent to the event log.
+enqueue and, on the card, device time from CUDA events), the refresh of the
+eval tables (``refresh_s``) and validation, kept in ``epoch_stats`` and sent
+to the event log.
 """
 from __future__ import annotations
 
@@ -261,7 +262,11 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         for epoch in range(start_epoch, self.max_epoch):
             self.epoch_hook(epoch)
             stats = self._train_epoch(epoch)
+            t = time.perf_counter()
             self.refresh_tables()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            stats["refresh_s"] = time.perf_counter() - t
             stop = False
             if epoch % self.eval_every == 0:
                 t = time.perf_counter()

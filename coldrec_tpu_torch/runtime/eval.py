@@ -44,15 +44,18 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     values lowest index first. Returns (values, int64 indices).
 
     ``torch.topk`` finds the k largest values; only where a tie crosses the
-    cut (more entries equal the k-th value than it kept) can it have kept
-    the wrong tied entries, and there the boundary rule takes every entry
-    above the k-th value plus the lowest-index entries equal to it."""
-    vals, idx = torch.topk(x, k, dim=1)
+    cut (an entry left out equals the k-th value: the (k+1)-th largest
+    does) can it have kept the wrong tied entries, and there the boundary
+    rule takes every entry above the k-th value plus the lowest-index
+    entries equal to it."""
     if k == 0:
-        return vals, idx
+        return torch.topk(x, 0, dim=1)
+    cut = k < x.shape[1]  # some entry is left out
+    vals, idx = torch.topk(x, k + cut, dim=1)
+    crossed = vals[:, k] == vals[:, k - 1] if cut else None
+    vals, idx = vals[:, :k], idx[:, :k]
     theta = vals[:, k - 1: k]
-    crossed = (x == theta).sum(dim=1) > (vals == theta).sum(dim=1)
-    if bool(crossed.any()):
+    if cut and bool(crossed.any()):
         rows = crossed.nonzero().squeeze(1)
         xr, th = x[rows], theta[rows]
         eq = xr == th

@@ -114,6 +114,19 @@ def test_stable_topk_all_ties_lowest_index_first(k):
     assert v.shape == (3, k)
 
 
+@pytest.mark.parametrize("k", [1, 7, 30, 63, 64])
+def test_stable_topk_integer_ties_match_stable_sort(rng, k):
+    """Ties crossing the cut in most rows (integer values), a row of -inf:
+    ids and values as a stable descending sort's."""
+    x = rng.integers(-3, 4, (40, 64)).astype(np.float32)
+    x[4, :] = -np.inf
+    x[5, 7:] = -np.inf
+    v, i = teval.stable_topk(torch.as_tensor(x), k)
+    order = np.argsort(-x, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(i.numpy(), order)
+    np.testing.assert_array_equal(v.numpy(), np.take_along_axis(x, order, 1))
+
+
 def test_mask_bias_vector_identical():
     for mask in (None, np.array([], np.int32), np.array([0, 5, 7])):
         np.testing.assert_array_equal(jeval.mask_bias_vector(10, mask),

@@ -777,3 +777,52 @@ def test_knn_self_search_matches_plain_on_integer_tables(cuda, d):
     ps, pi = tknn.knn_plain(table, table, 16, device=cuda)
     np.testing.assert_array_equal(i, pi)
     np.testing.assert_array_equal(s, ps)
+
+
+def test_usim_batch_step_on_card_matches_cpu(cuda, tmp_path):
+    """One USIM batch step (3 rollouts, 5 PPO iterations, the termination
+    step) on the card and on the CPU from the same seeded weights and the
+    same draws, on the dense and on the chunked PPO path: the rollout
+    actions equal, the losses within 1e-5 relative, the nets within 1e-3
+    in relative norm; then the greedy inference of the cold items: the
+    actions equal."""
+    from coldrec_tpu_torch.config import default_args
+    from coldrec_tpu_torch.data.synthetic import synthetic_dataset
+    from coldrec_tpu_torch.models import TRAINERS
+    from coldrec_tpu_torch.models import usim as tusim
+    from coldrec_tpu_torch.runtime.trainer import Config
+
+    data = synthetic_dataset(n_users=300, n_items=400, n_inter=6000,
+                             content_dim=16, seed=3, cold_object="item")[0]
+    for dense in (True, False):
+        trainers = [TRAINERS["USIM"](Config(default_args(
+            model="USIM", dataset="synth", emb_dir=str(tmp_path), emb_size=16,
+            bs=64, seed=4, save_emb=False, device=str(dev)), data))
+            for dev in (cuda, torch.device("cpu"))]
+        if not dense:
+            for t in trainers:
+                t.model._DENSE_OPT_ELEMS = 0
+        batch = next(iter(trainers[1].batches()))
+        draws = trainers[1].draw(64)
+        out = []
+        for t in trainers:
+            t.train_step(t.upload(batch), draws={
+                k: v.to(t.device) for k, v in draws.items()})
+            out.append({k: v.cpu() for k, v in t.last_step.items()})
+        assert torch.equal(out[0]["actions"], out[1]["actions"])
+        a, b = out[0]["losses"], out[1]["losses"]
+        assert float(((a - b).abs() / b.abs().clamp_min(1e-12)).max()) \
+            <= 1e-5, (a, b)
+        for p, q in zip(trainers[0].model.parameters(),
+                        trainers[1].model.parameters()):
+            gap = float((p.detach().cpu() - q.detach()).norm()
+                        / q.detach().norm().clamp_min(1e-30))
+            assert gap <= 1e-3, gap
+        m = [t.model for t in trainers]
+        cold = trainers[1].cold_idx
+        _, acts_card = m[0]._infer(m[0].actor, m[0].content[cold.to(cuda)],
+                                   with_actions=True)
+        _, acts_cpu = m[1]._infer(m[1].actor, m[1].content[cold],
+                                  with_actions=True)
+        assert torch.equal(acts_card.cpu(), acts_cpu)
+        assert isinstance(m[0], tusim.USIM)

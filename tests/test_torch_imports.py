@@ -438,9 +438,10 @@ CONTENT_MODULES = ("coldrec_tpu_torch.ops.knn",
                    "coldrec_tpu_torch.models.metaembedding",
                    "coldrec_tpu_torch.models.lara",
                    "coldrec_tpu_torch.models.clcrec",
-                   "coldrec_tpu_torch.models.gorec")
+                   "coldrec_tpu_torch.models.gorec",
+                   "coldrec_tpu_torch.models.usim")
 CONTENT_MODELS = ("KNN", "AGNN", "VBPR", "AMR", "MTPR", "MetaEmbedding",
-                  "LARA", "CLCRec", "GoRec")
+                  "LARA", "CLCRec", "GoRec", "USIM")
 
 
 def test_content_modules_import_without_jax(tmp_path):

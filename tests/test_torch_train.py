@@ -259,14 +259,22 @@ def test_refused_flags(datasets, overrides, error, match):
         _port(td, epochs=1, **overrides)
 
 
-@pytest.mark.parametrize("model,match", [
-    ("USIM", "Queue 1, item 6"), ("NotAModel", "Invalid model name"),
+@pytest.mark.parametrize("model,cold_object,match", [
+    ("USIM", "user", "USIM only supports item cold-start"),
+    ("NotAModel", "item", "Invalid model name"),
 ])
-def test_models_other_than_mf_raise(datasets, model, match):
+def test_models_other_than_mf_raise(datasets, model, cold_object, match):
+    """An unknown model name is refused by the parser and the factory;
+    every model of the JAX package is ported, and USIM refuses user cold
+    start with the JAX package's error."""
     _, td = datasets
-    with pytest.raises(ValueError, match=match):
-        make_args(["--model", model])
-    args = default_args(device="cpu")
+    argv = ["--model", model, "--cold_object", cold_object]
+    if model == "NotAModel":
+        with pytest.raises(ValueError, match=match):
+            make_args(argv)
+    else:
+        assert make_args(argv).usim_max_time == 7
+    args = default_args(device="cpu", cold_object=cold_object)
     args.model = model
     with pytest.raises(ValueError, match=match):
         model_factory(Config(args, td))
