@@ -7,7 +7,12 @@ Phases, each printed with its seconds:
   1. device   the card's name and power limit (nvidia-smi) and torch's name;
   2. build    nvcc builds the kernels from ``coldrec_tpu_torch/csrc``, and
               the host compiler the negative sampler and FSGNN's PPR push
-              beside them;
+              beside them; then phase sass counts the tensor-core
+              instructions (HMMA/HGMMA) of every instance of the bf16 sweep
+              in the library's SASS (``cuobjdump``, those functions only)
+              and fails where one has none (without cuobjdump, the bf16
+              sweep's time below the CUDA cores' FMA bound in phase 8
+              stands in);
   3. kernel   the retrieval kernel against its plain PyTorch version at
               d=64 on 2048 users x 270,170 items (kernel-bx) and 2048 x
               3,706 items (kernel-ml): the candidate values and ghosts agree
@@ -181,8 +186,8 @@ Phases, each printed with its seconds:
               the 512-user serving request for the sweep, its bf16 instance
               and the merge): the kernel, its plain version and one library
               yardstick, beside the least time the card could take (for the
-              bf16 instance two bounds: the CUDA cores' fp32 FMA rate and
-              the tensor cores' bf16 rate). The merge is timed alone
+              bf16 instance the tensor cores' bf16 rate, with the CUDA
+              cores' fp32 FMA rate beside it). The merge is timed alone
               as well (100 launches in one CUDA graph: its device time) at
               512 users x the kernel's parts and 2048 users x 2 parts;
               timing-variants first logs each kernel's registers and spill
@@ -273,6 +278,7 @@ from coldrec_tpu_torch.utils.metrics import ranking_evaluation
 # run beside the card phases (``Checks``)
 BUDGET_S = 1000.0
 D = 64  # MF emb_size (BASELINE default)
+BF16_KERNEL = "mma_sweep_kernel"  # the bf16 sweep's tensor-core kernel
 K = 20
 RATED_WIDTH = 32
 # Book-crossing (reference data/README.md:9, BASELINE.md): users, items,
@@ -2867,8 +2873,8 @@ def kernel_registers(ptxas: str) -> None:
     # stream and multiacc are instances of one template, told apart by
     # their chain
     for name, kernel in (
-            ("fused_sweep", "fused_sweep_kernelIf"),
-            ("fused_sweep_bf16", "fused_sweep_kernelI13__nv_bfloat16"),
+            ("fused_sweep", "fused_sweep_kernelILi"),
+            ("fused_sweep_bf16", BF16_KERNEL),
             ("merge_parts", "merge_parts_kernel"),
             ("dot_sweep", "dot_sweep_kernel"),
             ("stream_sweep", r"chain_sweep_kernel\w*StreamChain"),
@@ -2876,6 +2882,24 @@ def kernel_registers(ptxas: str) -> None:
             ("skip_sweep", "skip_sweep_kernel")):
         log(f"  registers/spill bytes {name}: "
             f"{tile_shapes.registers(ptxas, kernel)}")
+
+
+def tensor_cores(path):
+    """Phase sass: HMMA/HGMMA instructions per instance of the bf16 sweep
+    in the library's SASS (only its functions are disassembled); raises
+    where an instance has none. Returns their sum, or None without
+    cuobjdump."""
+    counts = kbuild.sass_mma_counts(path, BF16_KERNEL)
+    if counts is None:
+        log("  cuobjdump not found: the bf16 sweep's time against the FMA "
+            "bound stands in (phase timing)")
+        return None
+    for name, n in counts.items():
+        log(f"  {n} HMMA/HGMMA in {name}")
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"the bf16 sweep has no tensor-core "
+                             f"instruction: {counts}")
+    return sum(counts.values())
 
 
 def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
@@ -2996,6 +3020,7 @@ def main() -> int:
     built, host = run_phase("build", build_all)
     log(f"  {built.path.name}: nvcc {built.seconds:.2f} s\n{built.ptxas}")
     log(f"  {host[0].name}: {host[1]:.2f} s")
+    hmma = run_phase("sass", tensor_cores, built.path)
     CHECKS.start()
 
     errs = [
@@ -3066,6 +3091,11 @@ def main() -> int:
             f"{r['fp32_fma_bound_ms']:.3f} ms, on the tensor cores "
             f"{r['bound_ms']:.3f} ms ({r['bound_by']}: {r['flops']:.3e} "
             f"FLOP, {r['bytes']:.3e} B)")
+    if hmma is None and not b16["ms"] < b16["fp32_fma_bound_ms"]:
+        raise AssertionError(
+            f"no SASS to show the bf16 sweep on the tensor cores, and its "
+            f"{b16['ms']:.3f} ms is not below the FMA bound "
+            f"{b16['fp32_fma_bound_ms']:.3f} ms")
     tm = time_merge(device)
     time_merge(device, n_users=2048, parts=2)
     tv = run_phase("timing-variants", time_variants, device,
@@ -3097,6 +3127,7 @@ def main() -> int:
         **{k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "fp32_fma_bound_ms", "library_ms",
                                "library")},
+        "ms_512": b16_512["ms"], "hmma": hmma,
     }, {
         "name": "merge_parts",
         "route": "cuda",

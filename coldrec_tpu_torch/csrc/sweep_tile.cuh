@@ -27,15 +27,7 @@
 // Products are exact fp32: every score is one fmaf chain over j = 0..d-1 in
 // order starting from 0 (the accumulators live across the chunks of a
 // group), so the scores are bitwise those of the plain FFMA loop. No TF32,
-// no tensor cores.
-//
-// Element type. The tables are float or __nv_bfloat16 (TileOf<T>). With
-// bf16 the items are staged as bf16 (a 16-byte cp.async moves 8 of them,
-// so a stage holds half the bytes) and widened to float where a thread
-// reads them into registers; the users are widened as they are loaded into
-// shared memory (cp.async moves 4 bytes at least, a user tile is loaded
-// once a walk). A product of two bf16 values is exact in fp32, so the
-// scores are those of the FFMA loop over the widened operands.
+// no tensor cores (the bf16 sweep's tensor-core tile is mma_tile.cuh).
 //
 // The walk calls epi.begin(q, g + q) at the first chunk of a step over
 // groups g .. g + GS - 1 and, after its last chunk, epi.step(g, n, acc)
@@ -45,11 +37,8 @@
 // Shape::item(ig, e).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace coldrec_tile {
 
@@ -71,25 +60,23 @@ struct Shape {
   static constexpr int THREADS = NUG * NIG;
   static constexpr int LU = 32 / LI;  // user groups of a warp
   static constexpr int WI = NIG / LI;  // warps side by side along the items
-  // a stage holds the users' chunk (as floats) unless they are resident,
-  // then the items' chunk of element type T, in units of a float
-  template <bool RESIDENT, class T = float>
+  // a stage holds the users' chunk unless they are resident, then the
+  // items' chunk
+  template <bool RESIDENT>
   __host__ __device__ static constexpr int stage_floats() {
-    return DC * ((RESIDENT ? 0 : TU) +
-                 W * (int)sizeof(T) / (int)sizeof(float));
+    return DC * ((RESIDENT ? 0 : TU) + W);
   }
-  // dynamic shared memory of a block at depth d: the resident users (as
-  // floats), then the ring
-  template <bool RESIDENT, class T = float>
+  // dynamic shared memory of a block at depth d: the resident users, then
+  // the ring
+  template <bool RESIDENT>
   static constexpr size_t smem_bytes(int d) {
     return sizeof(float) * ((RESIDENT ? (size_t)TU * d : 0) +
-                            STAGES * stage_floats<RESIDENT, T>());
+                            STAGES * stage_floats<RESIDENT>());
   }
   // the resident tile is used up to this many bytes of shared memory
   static constexpr size_t RESIDENT_MAX = 200 * 1024;
-  template <class T = float>
   static constexpr bool resident(int d) {
-    return smem_bytes<true, T>(d) <= RESIDENT_MAX;
+    return smem_bytes<true>(d) <= RESIDENT_MAX;
   }
   static_assert(TU % RU == 0 && LANES % RI == 0 && NIG % LI == 0 &&
                     NUG % LU == 0 && THREADS % 32 == 0,
@@ -154,14 +141,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---- the tile
-template <class T>
-struct TileOf {
-  const T* __restrict__ users;  // (n_users, d)
-  const T* __restrict__ items;  // (d, I_pad) or (I_pad, d)
+struct Tile {
+  const float* __restrict__ users;  // (n_users, d)
+  const float* __restrict__ items;  // (d, I_pad) or (I_pad, d)
   int n_users, d, i_pad;
   int u0;  // first user of the block
 };
-using Tile = TileOf<float>;
 
 // Copy users [u0, u0 + TU) x dims [j0, j0 + dc) into su laid out (dc, TU)
 // (row jj holds dimension j0 + jj) as floats; users past n_users are zero.
@@ -179,39 +164,22 @@ __device__ __forceinline__ void load_users(const Tile& t, float* su, int j0,
   }
 }
 
-// The same for bf16 users, widened to floats by plain loads and stores
-// (cp.async moves 4 bytes at least; the stores are visible to the block
-// after the walk's next __syncthreads, as the copies are).
-template <class S>
-__device__ __forceinline__ void load_users(const TileOf<__nv_bfloat16>& t,
-                                           float* su, int j0, int dc) {
-  constexpr int TU = S::TU;
-  for (int e = threadIdx.x; e < dc * TU; e += S::THREADS) {
-    const int u = e & (TU - 1);
-    const int jj = e / TU;
-    const int row = t.u0 + u;
-    const size_t at = (size_t)row * t.d + j0 + jj;
-    su[jj * TU + u] = row < t.n_users ? __bfloat162float(t.users[at]) : 0.0f;
-  }
-}
-
 // Stage step (groups g .. g + GS - 1, chunk k) into `st`: the users' chunk
 // (DC, TU) unless they are resident, then the items' (DC, GS * LANES).
 // Rows past the chunk's depth are left as they are (the products never read
-// them); items past I_pad are zero. bf16 tables take the 16-byte copies
-// only (rows 16-byte aligned).
-template <class S, int LAYOUT, bool RESIDENT, class T>
-__device__ __forceinline__ void load_step(const TileOf<T>& t, float* st,
-                                          int g, int k) {
+// them); items past I_pad are zero.
+template <class S, int LAYOUT, bool RESIDENT>
+__device__ __forceinline__ void load_step(const Tile& t, float* st, int g,
+                                          int k) {
   constexpr int DC = S::DC, THREADS = S::THREADS, W = S::W;
   const int tid = threadIdx.x;
   const int j0 = k * DC;
   const int dc = min(DC, t.d - j0);
   if constexpr (!RESIDENT) load_users<S>(t, st, j0, dc);
-  T* si = reinterpret_cast<T*>(st + (RESIDENT ? 0 : DC * S::TU));
+  float* si = st + (RESIDENT ? 0 : DC * S::TU);
   const size_t col0 = (size_t)g * LANES;
   if constexpr (LAYOUT == kRows16) {
-    constexpr int V = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+    constexpr int V = 4;  // floats of a 16-byte copy
     for (int e = tid; e < dc * (W / V); e += THREADS) {
       const int jj = e / (W / V);
       const int q = e - jj * (W / V);
@@ -222,8 +190,6 @@ __device__ __forceinline__ void load_step(const TileOf<T>& t, float* st,
                  valid);
     }
   } else {
-    static_assert(std::is_same<T, float>::value,
-                  "bf16 tables are staged by 16-byte copies");
     for (int e = tid; e < dc * W; e += THREADS) {
       const int i = e & (W - 1);
       const int jj = e / W;
@@ -238,31 +204,7 @@ __device__ __forceinline__ void load_step(const TileOf<T>& t, float* st,
 }
 
 // The R values of group g in one staged row laid out as Shape::user (NG
-// groups) or Shape::item says, widened to float.
-template <int R, int NG>
-__device__ __forceinline__ void tile_values(const __nv_bfloat16* row, int g,
-                                            float (&x)[R]) {
-  if constexpr (R == 1) {
-    x[0] = __bfloat162float(row[g]);
-  } else if constexpr (R == 2) {
-    const float2 v =
-        __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[g]);
-    x[0] = v.x;
-    x[1] = v.y;
-  } else {
-    // four bf16 in 8 bytes, the first in the low half: a bf16 is the high
-    // half of the float it widens to
-#pragma unroll
-    for (int q = 0; q < R / 4; ++q) {
-      const uint2 v = reinterpret_cast<const uint2*>(row)[q * NG + g];
-      x[4 * q + 0] = __uint_as_float(v.x << 16);
-      x[4 * q + 1] = __uint_as_float(v.x & 0xffff0000u);
-      x[4 * q + 2] = __uint_as_float(v.y << 16);
-      x[4 * q + 3] = __uint_as_float(v.y & 0xffff0000u);
-    }
-  }
-}
-
+// groups) or Shape::item says.
 template <int R, int NG>
 __device__ __forceinline__ void tile_values(const float* row, int g,
                                             float (&x)[R]) {
@@ -287,9 +229,9 @@ __device__ __forceinline__ void tile_values(const float* row, int g,
 template <class S>
 using Acc = float[S::GS][S::RU][S::RI];
 
-template <class S, class T>
-__device__ __forceinline__ void fma_row(const float* su, const T* si, int jj,
-                                        int ug, int ig, Acc<S>& acc) {
+template <class S>
+__device__ __forceinline__ void fma_row(const float* su, const float* si,
+                                        int jj, int ug, int ig, Acc<S>& acc) {
   float uu[S::RU], xx[S::GS][S::RI];
   tile_values<S::RU, S::NUG>(su + jj * S::TU, ug, uu);
 #pragma unroll
@@ -322,10 +264,10 @@ __device__ __forceinline__ void zero(Acc<S>& acc) {
 
 // The products of one step, dimension by dimension: su holds the chunk's
 // user rows (stride TU), si its item rows (stride GS * LANES).
-template <class S, class T>
-__device__ __forceinline__ void step_products(const float* su, const T* si,
-                                              int dc, int ug, int ig,
-                                              Acc<S>& acc) {
+template <class S>
+__device__ __forceinline__ void step_products(const float* su,
+                                              const float* si, int dc, int ug,
+                                              int ig, Acc<S>& acc) {
   if (dc == S::DC) {
 #pragma unroll
     for (int jj = 0; jj < S::DC; ++jj) fma_row<S>(su, si, jj, ug, ig, acc);
@@ -336,13 +278,13 @@ __device__ __forceinline__ void step_products(const float* su, const T* si,
 }
 
 // Walk groups [g_lo, g_hi) of the tile; `smem` holds
-// S::smem_bytes<RESIDENT, T>(d) bytes: the resident users (d, TU) if
+// S::smem_bytes<RESIDENT>(d) bytes: the resident users (d, TU) if
 // RESIDENT, then the ring of stages. Every thread of the block must call it.
-template <class S, int LAYOUT, bool RESIDENT, class T, class Epi>
-__device__ __forceinline__ void sweep_walk(const TileOf<T>& t, int g_lo,
-                                           int g_hi, float* smem, Epi& epi) {
+template <class S, int LAYOUT, bool RESIDENT, class Epi>
+__device__ __forceinline__ void sweep_walk(const Tile& t, int g_lo, int g_hi,
+                                           float* smem, Epi& epi) {
   constexpr int DC = S::DC, STAGES = S::STAGES;
-  constexpr int STAGE = S::template stage_floats<RESIDENT, T>();
+  constexpr int STAGE = S::template stage_floats<RESIDENT>();
   const int ug = S::ug();
   const int ig = S::ig();
   const int chunks = (t.d + DC - 1) / DC;
@@ -381,9 +323,8 @@ __device__ __forceinline__ void sweep_walk(const TileOf<T>& t, int g_lo,
     }
     const float* st = ring + (s % STAGES) * STAGE;
     step_products<S>(RESIDENT ? smem + k * DC * S::TU : st,
-                     reinterpret_cast<const T*>(RESIDENT ? st
-                                                         : st + DC * S::TU),
-                     min(DC, t.d - k * DC), ug, ig, acc);
+                     RESIDENT ? st : st + DC * S::TU, min(DC, t.d - k * DC),
+                     ug, ig, acc);
     if (++k == chunks) {
       epi.step(g, min(S::GS, g_hi - g), acc);
       zero<S>(acc);
@@ -437,11 +378,12 @@ __device__ __forceinline__ float insert_sorted(float (&rv)[SLOTS],
 }
 
 // Parts for a sweep of n_users over `groups` item groups: as many as fill
-// every SM with the blocks it holds of `kernel` (one item range each), at
-// least 1 and at most one group each. Returns 0 on a CUDA error.
+// every SM with the blocks it holds of `kernel` (one item range each,
+// `per_tile` blocks a tile of S::TU users), at least 1 and at most one
+// group each. Returns 0 on a CUDA error.
 template <class S, typename Kernel>
 inline int choose_parts(Kernel* kernel, size_t smem, int n_users,
-                        int groups) {
+                        int groups, int per_tile = 1) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -456,7 +398,8 @@ inline int choose_parts(Kernel* kernel, size_t smem, int n_users,
           &per_sm, kernel, S::THREADS, smem) != cudaSuccess) {
     return 0;
   }
-  const long long tiles = (n_users + S::TU - 1) / S::TU;
+  const long long tiles =
+      (long long)(n_users + S::TU - 1) / S::TU * per_tile;
   long long parts = (long long)sms * (per_sm > 0 ? per_sm : 1) / tiles;
   if (parts < 1) parts = 1;
   if (parts > groups) parts = groups;

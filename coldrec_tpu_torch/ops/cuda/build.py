@@ -16,11 +16,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, Optional
 
 import torch
 
@@ -29,7 +31,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("retrieval.cu", "exp_retrieval_kernels.cu", "exp_multiacc.cu",
            "exp_blockskip.cu")
-HEADERS = ("sweep_common.cuh", "sweep_tile.cuh")
+HEADERS = ("sweep_common.cuh", "sweep_tile.cuh", "mma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-Xcompiler", "-fPIC",
@@ -54,6 +56,54 @@ def find_nvcc() -> str:
             "kernels build only on a host with the CUDA toolkit"
         )
     return nvcc
+
+
+def find_cuobjdump() -> Optional[str]:
+    tool = shutil.which("cuobjdump")
+    if tool is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        tool = "/usr/local/cuda/bin/cuobjdump"
+    return tool
+
+
+def mma_counts(sass: str, kernel: str) -> Dict[str, int]:
+    """For each function of a ``cuobjdump -sass`` listing whose (mangled)
+    name contains ``kernel``: its tensor-core instructions (HMMA, HGMMA)."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", "\n" + sass)[1:]:
+        name, _, body = part.partition("\n")
+        if kernel in name:
+            out[name.strip()] = len(re.findall(r"\bH(?:G)?MMA\.", body))
+    return out
+
+
+def function_names(symbols: str, kernel: str) -> list:
+    """The (mangled) names of the functions in a ``cuobjdump -symbols``
+    listing that contain ``kernel``, sorted, each once."""
+    return sorted({line.split()[-1] for line in symbols.splitlines()
+                   if "STT_FUNC" in line and kernel in line.split()[-1]})
+
+
+def _cuobjdump(tool: str, *args: str) -> str:
+    r = subprocess.run([tool, *args], capture_output=True, text=True,
+                       timeout=NVCC_TIMEOUT_S)
+    if r.returncode:
+        raise RuntimeError(f"cuobjdump {' '.join(args[:-1])} failed "
+                           f"({r.returncode}): {r.stderr}")
+    return r.stdout
+
+
+def sass_mma_counts(path: Path, kernel: str) -> Optional[Dict[str, int]]:
+    """``mma_counts`` of the library at ``path`` (None without
+    cuobjdump). Only the functions whose names contain ``kernel`` are
+    disassembled, found first among the library's ELF symbols."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return None
+    names = function_names(_cuobjdump(tool, "-symbols", str(path)), kernel)
+    if not names:
+        return {}
+    return mma_counts(_cuobjdump(tool, "-sass", "-fun", ",".join(names),
+                                 str(path)), kernel)
 
 
 def library_path() -> Path:

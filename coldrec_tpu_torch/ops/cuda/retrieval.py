@@ -36,11 +36,13 @@ sorted top-SLOTS of the union, and as ghost the max of the parts' ghosts
 and of the values the merge drops.
 
 bf16 mode (the JAX package's ``bf16=True``, ``--eval_backend
-pallas_bf16``): ``fused_sweep`` takes bfloat16 tables and launches the
-kernel's bf16 instance, which widens the operands to fp32 and accumulates
-in fp32; ``retrieval_topk(bf16=True)`` rounds the tables to bf16 on the
-device and scores its exact fallback on the same rounded operands, so the
-lists are the exact top-k of the bf16-rounded scores.
+pallas_bf16``): ``fused_sweep`` takes bfloat16 tables (``items_t`` and
+``excl`` 16-byte aligned) and launches the bf16 kernel, which multiplies
+them on the tensor cores (bf16 operands, fp32 accumulators: products exact,
+sums in the tensor cores' order, as the TPU's matrix unit sums them);
+``retrieval_topk(bf16=True)`` rounds the tables to bf16 on the device and
+scores its exact fallback on the same rounded operands, so the lists are
+the exact top-k of the bf16-rounded scores.
 
 ``fused_sweep`` and ``merge_parts`` launch their kernels for CUDA tensors
 and count each launch (``fused_sweep.launches`` for fp32 tables and
@@ -121,8 +123,9 @@ def fused_sweep(
     if users.device.type != "cuda":
         raise ValueError(f"no retrieval kernel for device {users.device}")
     bf16 = users.dtype == torch.bfloat16
-    if bf16 and items_t.data_ptr() % 16:
-        raise ValueError("the bf16 sweep takes a 16-byte aligned items_t")
+    if bf16 and (items_t.data_ptr() % 16 or excl.data_ptr() % 16):
+        raise ValueError(
+            "the bf16 sweep takes 16-byte aligned items_t and excl")
     name = "coldrec_fused_sweep_bf16" if bf16 else "coldrec_fused_sweep"
     b, d = users.shape
     i_pad = items_t.shape[1]

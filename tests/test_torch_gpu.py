@@ -598,6 +598,80 @@ def test_bf16_kernel_matches_plain_on_normal_tables(cuda):
         np.testing.assert_allclose(sa, sb, atol=1e-5 * np.abs(sb).max())
 
 
+@pytest.mark.parametrize("n_users,d", [(130, 17), (130, 31), (130, 2312)])
+def test_bf16_kernel_integer_tables_exact_at_more_depths(cuda, n_users, d):
+    """Depths that end inside a k-step of the tensor cores (17, 31: the
+    tail up to 16 is zero in both operands) and one whose user tile is
+    staged step by step beside the items (2,312): bit for bit equal to the
+    plain version."""
+    users, items_t, excl_row = _int_sweep_inputs(cuda, n_users, 3000, d,
+                                                 seed=n_users + d)
+    got = tret.fused_sweep(*_bf16(users, items_t), excl_row)
+    for g, r in zip(got, tret.fused_sweep_reference(users, items_t,
+                                                    excl_row)):
+        assert torch.equal(g, r)
+
+
+def test_bf16_kernel_ties_across_parts_keep_the_lowest_ids(cuda):
+    """Scores with few distinct values (items of 0/1 entries, d=4): most
+    items of a lane class tie, within a part and across the parts the
+    sweep is split into, and the slots hold the lowest ids of each value,
+    as in the plain version."""
+    rng = np.random.default_rng(11)
+    users = torch.ones((130, 4), device=cuda)
+    items = torch.as_tensor(rng.integers(0, 2, (20000, 4)).astype(np.float32),
+                            device=cuda)
+    excluded = torch.as_tensor(rng.random(20000) < 0.1, device=cuda)
+    items_t, excl_row = tret.pad_items(items, excluded)
+    assert tret.sweep_parts("coldrec_fused_sweep_bf16_parts", cuda, 130, 4,
+                            items_t.shape[1]) > 1
+    got = tret.fused_sweep(*_bf16(users, items_t), excl_row)
+    ref = tret.fused_sweep_reference(users, items_t, excl_row)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int((ref[0] == 4.0).sum()) > 130 * tret.LANES  # ties in slots
+
+
+def test_bf16_kernel_at_serving_shape_within_tol(cuda):
+    """2048 users x 270,170 items (book-crossing's), d=64, N(0,1) tables:
+    values and ghosts within TOL of the plain version (the tensor cores'
+    fp32 sums in another order), every non-candidate below the ghost."""
+    ue, ie, excluded, _ = _tables(cuda, 2048, 270_170, 64, seed=7)
+    users = tret.bf16_round(torch.as_tensor(ue, device=cuda))
+    items_t, excl_row = tret.pad_items(
+        tret.bf16_round(torch.as_tensor(ie, device=cuda)),
+        torch.as_tensor(excluded, device=cuda))
+    cv, ci, gh = tret.fused_sweep(*_bf16(users, items_t), excl_row)
+    rv, ri, rg = tret.fused_sweep_reference(users, items_t, excl_row)
+    torch.testing.assert_close(cv, rv, rtol=0, atol=TOL)
+    torch.testing.assert_close(gh, rg, rtol=0, atol=TOL)
+    for s in range(0, 2048, 256):
+        z = (users[s:s + 256] @ items_t).masked_fill(
+            excl_row.bool()[None], tret.NEG)
+        filled = cv[s:s + 256] > tret.INIT_NEG
+        cid = torch.where(filled, ci[s:s + 256], ci[s:s + 256, :1]).long()
+        torch.testing.assert_close(z.gather(1, cid)[filled],
+                                   cv[s:s + 256][filled], rtol=0, atol=TOL)
+        z.scatter_(1, cid, -float("inf"))
+        assert bool((z.max(1).values
+                     <= gh[s:s + 256].max(1).values + TOL).all())
+
+
+def test_bf16_kernel_keeps_subnormal_inputs(cuda):
+    """bf16 subnormals are not flushed: 2^-130 (a user value) x 2^100 and
+    2^-100 x 2^-40 (a subnormal fp32 product) score as the plain version
+    does."""
+    excl = torch.zeros(tret.LANES, dtype=torch.int8, device=cuda)
+    for uv, iv in ((2.0 ** -130, 2.0 ** 100), (2.0 ** -100, 2.0 ** -40)):
+        users = torch.zeros((1, 16), device=cuda)
+        users[0, 0] = uv
+        items_t = torch.zeros((16, tret.LANES), device=cuda)
+        items_t[0, 3] = iv
+        got = tret.fused_sweep(*_bf16(users, items_t), excl)
+        ref = tret.fused_sweep_reference(users, items_t, excl)
+        assert float(got[0][0, 3]) == float(ref[0][0, 3]) == uv * iv != 0
+
+
 def test_bf16_kernel_refuses_misaligned_items(cuda):
     users, items_t, excl_row = _int_sweep_inputs(cuda, 8, 300, 16, seed=1)
     ub, ib = _bf16(users, items_t)
@@ -608,6 +682,11 @@ def test_bf16_kernel_refuses_misaligned_items(cuda):
         tret.fused_sweep(ub, odd, excl_row)
     with pytest.raises(TypeError, match="one type"):
         tret.fused_sweep(ub, items_t, excl_row)
+    excl_odd = torch.zeros(excl_row.numel() + 1, dtype=torch.int8,
+                           device=cuda)[1:]
+    excl_odd.copy_(excl_row)
+    with pytest.raises(ValueError, match="16-byte"):
+        tret.fused_sweep(ub, ib, excl_odd)
 
 
 # ------------------------------------------------------------ graph path
