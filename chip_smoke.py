@@ -182,6 +182,25 @@ Phases, each printed with its seconds:
               same places): dot in both layouts, stream at both block_i,
               multiacc at every P at block_i 8192 and at 384 (3 slices, no
               multiple of P > 1), skip at both tile_u;
+  bench       after the checks are joined: the port's bench entry
+              (``python -m coldrec_tpu_torch.bench``) in a subprocess at
+              full shape; its one JSON line logged, every figure finite and
+              positive, its ``device_kind`` this card's; then the kernel's
+              lists at both of its sweep shapes (4096 x 270,336 and 6,040 x
+              3,706) held to the plain route's by the rule of phase 3;
+  profile     on a split of ``synthetic_interactions`` at MovieLens-1M
+              shape (every split through the kernel, unlike phase
+              cold-signal's): MF one epoch through the CLI, plain, with
+              ``--profile DIR`` (the Chrome trace must load and name
+              ``fused_sweep_kernel`` among its device kernels; its top 10
+              kernels by device time logged) and with ``--debug_nans``,
+              each run's seconds per epoch logged;
+  fused       MF and XSimGCL 2 epochs each through the CLI on that split,
+              ``--fused_steps 8`` against ``--fused_steps 0``, with
+              deterministic algorithms on (the SpMM tail's atomics would
+              part the runs on their own): bus tables within rtol 1e-5,
+              atol 1e-6, test lists id-equal but at near-ties, each run's
+              epochs logged;
   8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep, its bf16 instance
               and the merge): the kernel, its plain version and one library
@@ -228,6 +247,7 @@ import warnings
 import numpy as np
 import torch
 
+from coldrec_tpu_torch import bench as tbench
 from coldrec_tpu_torch import main as tmain
 from coldrec_tpu_torch import native
 from coldrec_tpu_torch.config import default_args, make_args
@@ -268,7 +288,11 @@ from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
 from coldrec_tpu_torch.tools import tile_shapes
 from coldrec_tpu_torch.utils.logging import event_log
+from coldrec_tpu_torch.utils import timing
 from coldrec_tpu_torch.utils.metrics import ranking_evaluation
+from coldrec_tpu_torch.utils.timing import (
+    sweep_bound, time_ms, time_sweep, time_sweep_bf16,
+)
 
 # the whole run, under the 1200 s it may take at most. With phase recon
 # (before it, 457.7 s) and the earlier phases' depth cut to one epoch a
@@ -426,14 +450,10 @@ USIM_INFER_CHECK = 2048
 # in float64 on both devices instead, where the rounding noise lies far
 # below the optimizers' eps (1e-10, 1e-8) and cannot be amplified.
 SYNCED_STEPS = ("CCFCRec", "VBPR", "SimGCL")
-HBM_BYTES_S = 3.35e12  # the H100 SXM's HBM3 rate
 LIBRARY_CHUNK = 4096  # queries per mm + topk of phase knn's library yardstick
 # fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
 # float64 (TF32 leaves ~1e-3)
 FP32_RTOL = 1e-5
-# the SpMM against torch.sparse.mm: fp32 sums of <= 48,301 terms of
-# normalized weights in another order
-SPMM_RTOL = 1e-5
 # each kernel's launch counter: (wrapper, attribute)
 COUNTERS = {
     "fused_sweep": (fused_sweep, "launches"),
@@ -1519,7 +1539,7 @@ def knn_sweeps(queries, values, device):
             fused_sweep(queries[s:s + USER_CHUNK].contiguous(), items_t,
                         excl_row)
 
-    return erk.time_ms(run, 1, device, repeats=1) / 1e3
+    return time_ms(run, 1, device, repeats=1) / 1e3
 
 
 def knn_shape(device, tag, q, v, d, k, seed=0):
@@ -1814,7 +1834,7 @@ def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
     tm.host_rng = np.random.default_rng(seed)
     batches = [tm.upload(b) for _, b in zip(range(reps), tm.batches())]
     it = iter(range(10 ** 9))
-    step_ms = erk.time_ms(lambda: tm.train_step(
+    step_ms = time_ms(lambda: tm.train_step(
         batches[next(it) % reps]), reps, device, repeats=1)
     m = tm.model
     applies = {"merged": (tm.g_complete, tm.n_layers),
@@ -1827,7 +1847,7 @@ def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
         n = op.graph.n_rows
         x = torch.randn((n, d), device=device, requires_grad=True)
         g = torch.randn((n, d), device=device)
-        ms = erk.time_ms(lambda: op(x).backward(g), reps, device,
+        ms = time_ms(lambda: op(x).backward(g), reps, device,
                          repeats=1)
         out["spmm_ms"][name] = ms
         spmm_total += count * ms
@@ -1838,7 +1858,7 @@ def fsgnn_step_split(device, data, root, d=D, bs=4096, seed=0, reps=10):
         enc_u, enc_i = tm.gat_encode(h0_u, h0_i, h0_u, h0_i)
         (enc_u.sum() + enc_i.sum()).backward()
 
-    out["gat_ms"] = erk.time_ms(gat, reps, device, repeats=1)
+    out["gat_ms"] = time_ms(gat, reps, device, repeats=1)
     out["spmm_share"] = spmm_total / step_ms
     out["gat_share"] = out["gat_ms"] / step_ms
     log(f"  FSGNN step split (trainer set-up {setup_s:.2f} s): step "
@@ -1949,7 +1969,7 @@ def usim_step_split(tm, seed=0, blk=4096):
         out[name] = {"ms": dev_ms, "host_ms": (h1 - h0) * 1e3,
                      **bounds[name]}
     out["inference chunk"] = {
-        "ms": erk.time_ms(lambda: m._infer(m.actor, content), 3, device,
+        "ms": time_ms(lambda: m._infer(m.actor, content), 3, device,
                           repeats=1), **bounds["inference chunk"]}
     t_rows = usim_mod.ROLLOUTS * m.max_time * bs
     step_ms = sum(v["ms"] for k, v in out.items() if k != "inference chunk")
@@ -2233,87 +2253,12 @@ def ncl_proto(device, data, d=D, bs=4096, seed=0, steps=STEP_CHECK):
 
 
 def time_spmm(device, data, d=D, reps=10, seed=0) -> dict:
-    """One apply of the symmetric SpMM at the data's shape: its ELL part
-    (``embedding_bag``) and its tail (``index_add_``), each beside the form
-    it replaced (the (N, K, d) gather + ``bmm``; ``segment_reduce`` over
-    the sorted tail), the apply, forward + backward, and ``torch.sparse.mm``
-    on the same CSR matrix (a yardstick), in CUDA-event ms after a warm-up
-    (host clock on the CPU), beside its byte bound: the ELL reads
-    N*K*(4+4) bytes of indices and values and N*K*d*4 of gathered rows and
-    writes N*d*4, the tail reads T*(4+4+4) + T*d*4 and writes its rows, at
-    3.35 TB/s. Every form is held against the yardstick (``SPMM_RTOL`` of
-    the largest value)."""
-    device = torch.device(device)
-    host = data.norm_adj
-    graph = spmm_mod.build_ell(host, device=device)
-    op = spmm_mod.SymSpmm(graph)
-    n = host.shape[0]
-    k = graph.ell_cols.shape[1]
-    t = graph.tail_rows.shape[0]
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn((n, d), generator=gen).to(device)
-    g = torch.randn((n, d), generator=gen).to(device)
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(host.rows, minlength=n), out=indptr[1:])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # CSR support "in beta state"
-        csr = torch.sparse_csr_tensor(
-            torch.as_tensor(indptr, device=device),
-            torch.as_tensor(host.cols.astype(np.int64), device=device),
-            torch.as_tensor(host.vals, device=device), size=(n, n),
-            check_invariants=False)
-    lengths = torch.bincount(graph.tail_rows, minlength=n)
-
-    def ell_gather():
-        rows = x[graph.ell_cols]  # (N, K, d)
-        return torch.bmm(graph.ell_vals.unsqueeze(1), rows).squeeze(1)
-
-    def tail_segment():
-        return torch.segment_reduce(
-            x[graph.tail_cols] * graph.tail_vals[:, None], "sum",
-            lengths=lengths, axis=0, unsafe=True)
-
-    lib = torch.sparse.mm(csr, x)
-    ells = (lambda: spmm_mod.ell_part(graph, x), ell_gather)
-    tails = (lambda: spmm_mod.tail_part(graph, x), tail_segment)
-    forms = [e() + f() for e in ells for f in tails]
-    scale = float(lib.abs().max())
-    err = max(float((v - lib).abs().max()) for v in forms)
-    if err > SPMM_RTOL * scale:
-        raise AssertionError(f"SpMM vs torch.sparse.mm: {err} (scale "
-                             f"{scale})")
-    first = op(x)
-    xr = x.clone().requires_grad_(True)
-
-    def fwd_bwd():
-        op(xr).backward(g)
-
-    def ms(fn):
-        return erk.time_ms(fn, reps, device)
-
-    out = {
-        "ell_ms": ms(ells[0]),
-        "ell_gather_ms": ms(ell_gather),
-        "tail_ms": ms(tails[0]),
-        "tail_segment_ms": ms(tail_segment),
-        "apply_ms": ms(lambda: op(x)),
-        "fwd_bwd_ms": ms(fwd_bwd),
-        "library_ms": ms(lambda: torch.sparse.mm(csr, x)),
-    }
-    stats = graph_stats(data)
-    ell_bytes = n * k * (4 + 4) + n * k * d * 4 + n * d * 4
-    tail_bytes = t * (4 + 4 + 4) + t * d * 4 + stats["tail_rows"] * d * 4
-    # every byte read or written once: x, the edges' columns and values,
-    # the output (torch.sparse.mm comes under the gather bound above: the
-    # rows it gathers come from L2 more than once)
-    once_bytes = n * d * 4 + host.nnz * (4 + 4) + n * d * 4
-    out.update(
-        bound_ms=(ell_bytes + tail_bytes) / HBM_BYTES_S * 1e3,
-        once_bound_ms=once_bytes / HBM_BYTES_S * 1e3,
-        ell_bound_ms=ell_bytes / HBM_BYTES_S * 1e3,
-        tail_bound_ms=tail_bytes / HBM_BYTES_S * 1e3,
-        max_abs_err=err, scale=scale,
-        repeatable=bool(torch.equal(op(x), first)))
+    """One apply of the symmetric SpMM at the data's shape beside the forms
+    it replaced, its yardstick and its byte bound (``timing.time_spmm``),
+    logged."""
+    out = timing.time_spmm(device, data.norm_adj, d, reps, seed)
+    n, k, t, err, scale = (out[key] for key in ("n", "k", "tail",
+                                                "max_abs_err", "scale"))
     log(f"  SpMM {n} nodes x d={d}, K={k}, tail {t} edges: apply "
         f"{out['apply_ms']:.3f} ms, forward + backward "
         f"{out['fwd_bwd_ms']:.3f} ms; ELL part (embedding_bag) "
@@ -2566,97 +2511,6 @@ def graph_ml_run(device, root, ds="ml_latent", epochs=2, d=D, bs=4096,
     return out
 
 
-def time_sweep(device, n_users=2048, n_items=BX[1], d=D, k=K,
-               r=RATED_WIDTH, seed=0, reps=20):
-    """Phase 6: CUDA-event milliseconds of one sweep, plus the bound."""
-    device = torch.device(device)
-    rng = np.random.default_rng(seed)
-    users = torch.as_tensor(
-        rng.standard_normal((n_users, d), dtype=np.float32), device=device)
-    items = torch.as_tensor(
-        rng.standard_normal((n_items, d), dtype=np.float32), device=device)
-    excl = torch.zeros(n_items, dtype=torch.bool, device=device)
-    excl[torch.as_tensor(rng.choice(n_items, n_items // 4, replace=False),
-                         device=device)] = True
-    items_t, excl_row = pad_items(items, excl)
-
-    def timed(fn, n):
-        return erk.time_ms(fn, n, device, repeats=1)
-
-    ms = timed(lambda: fused_sweep(users, items_t, excl_row), reps)
-    plain_ms = timed(
-        lambda: fused_sweep_reference(users, items_t, excl_row), 3)
-    lib_ms = timed(
-        lambda: torch.topk(exact_scores(users, items), k + r, dim=1), 5)
-    i_pad = items_t.shape[1]
-    flops = 2.0 * n_users * n_items * d
-    bytes_moved = (n_users * d * 4 + d * i_pad * 4 + i_pad
-                   + n_users * CANDIDATES * 8 + n_users * LANES * 4)
-    bound, by = sweep_bound(flops, bytes_moved)
-    return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bound_ms": bound, "bound_by": by, "flops": flops,
-        "bytes": bytes_moved,
-    }
-
-
-def bf16_library(device):
-    """(name, fn): one library call scoring bf16 tables, ``fn(users,
-    items) -> scores``: ``torch.mm`` with fp32 output where this torch
-    offers ``out_dtype`` on ``device``, else with bf16 output."""
-    a = torch.zeros((2, 2), dtype=torch.bfloat16, device=device)
-    try:
-        torch.mm(a, a, out_dtype=torch.float32)
-        return ("bf16 mm, fp32 output",
-                lambda u, i: torch.mm(u, i.T, out_dtype=torch.float32))
-    except (TypeError, RuntimeError):
-        return "bf16 mm, bf16 output", lambda u, i: torch.mm(u, i.T)
-
-
-def time_sweep_bf16(device, n_users=2048, n_items=BX[1], d=D, k=K,
-                    r=RATED_WIDTH, seed=0, reps=20):
-    """The bf16 sweep at one shape (the tables of ``time_sweep``, rounded):
-    CUDA-event ms of the kernel, its plain version's and a library
-    yardstick's (a bf16 matmul + ``torch.topk``), beside two bounds: the
-    CUDA cores' fp32 FMA rate (67 TFLOP/s; this kernel's design) and the
-    tensor cores' bf16 rate (989 TFLOP/s) against bf16 bytes (what a
-    tensor-core sweep could reach)."""
-    device = torch.device(device)
-    rng = np.random.default_rng(seed)
-    users = torch.as_tensor(
-        rng.standard_normal((n_users, d), dtype=np.float32),
-        device=device).bfloat16()
-    items = torch.as_tensor(
-        rng.standard_normal((n_items, d), dtype=np.float32),
-        device=device).bfloat16()
-    excl = torch.zeros(n_items, dtype=torch.bool, device=device)
-    excl[torch.as_tensor(rng.choice(n_items, n_items // 4, replace=False),
-                         device=device)] = True
-    items_t, excl_row = pad_items(items, excl)
-
-    def timed(fn, n):
-        return erk.time_ms(fn, n, device, repeats=1)
-
-    ms = timed(lambda: fused_sweep(users, items_t, excl_row), reps)
-    plain_ms = timed(lambda: fused_sweep_reference(
-        users.float(), items_t.float(), excl_row), 3)
-    library, score = bf16_library(device)
-    lib_ms = timed(lambda: torch.topk(score(users, items), k + r, dim=1), 5)
-    i_pad = items_t.shape[1]
-    flops = 2.0 * n_users * n_items * d
-    bytes_moved = (n_users * d * 2 + d * i_pad * 2 + i_pad
-                   + n_users * CANDIDATES * 8 + n_users * LANES * 4)
-    t_tc = flops / 989e12 * 1e3
-    t_bytes = bytes_moved / 3.35e12 * 1e3
-    return {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "library": library, "bound_ms": max(t_tc, t_bytes),
-        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
-        "fp32_fma_bound_ms": sweep_bound(flops, bytes_moved)[0],
-        "flops": flops, "bytes": bytes_moved,
-    }
-
-
 def time_merge(device, n_users=SERVE_USERS, n_items=BX[1], d=D, seed=0,
                reps=20, parts=None, graph_reps=100):
     """The merge at one shape, on the plain per-part sweeps of N(0,1)
@@ -2681,9 +2535,9 @@ def time_merge(device, n_users=SERVE_USERS, n_items=BX[1], d=D, seed=0,
         parts = max(2, sweep_parts_on(device, n_users, d, items_t.shape[1]))
     pv, pi, pg = sweep_parts_reference(users, items_t, excl_row, parts)
     ms = erk.graph_ms(lambda: merge_parts(pv, pi, pg), graph_reps, device)
-    call_ms = erk.time_ms(lambda: merge_parts(pv, pi, pg), reps, device,
+    call_ms = time_ms(lambda: merge_parts(pv, pi, pg), reps, device,
                           repeats=1)
-    plain_ms = erk.time_ms(lambda: merge_parts_reference(pv, pi, pg), 3,
+    plain_ms = time_ms(lambda: merge_parts_reference(pv, pi, pg), 3,
                            device, repeats=1)
     per_class = pv.view(parts, n_users, SLOTS, LANES).permute(
         1, 3, 0, 2).reshape(n_users, LANES, parts * SLOTS)
@@ -2854,15 +2708,6 @@ def variants_run(device, n_users=2048, n_items=VAR_ITEMS, d=D,
             for k in VARIANTS}
 
 
-def sweep_bound(flops, bytes_moved):
-    """(ms, "operations" or "bytes"): fp32 operations at 67 TFLOP/s (outside
-    the tensor cores) against bytes at 3.35 TB/s, the larger."""
-    t_ops = flops / 67e12 * 1e3
-    t_bytes = bytes_moved / 3.35e12 * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
-
-
 def kernel_registers(ptxas: str) -> None:
     """Log registers / spill-store bytes of every instance of each kernel
     from the build's ``nvcc -Xptxas -v`` report (empty when the library
@@ -2930,7 +2775,7 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
                            device=device)
 
     def ms(fn, n=reps, repeats=3):
-        return erk.time_ms(fn, n, device, repeats=repeats)
+        return time_ms(fn, n, device, repeats=repeats)
 
     flops = 2.0 * n_users * n_items * d
     tables = n_users * d * 4 + n_items * d * 4
@@ -2991,6 +2836,210 @@ def time_variants(device, n_users=2048, n_items=VAR_ITEMS, d=D, k=K,
     if device.type == "cuda":
         log(f"  SM clock, power draw after: {smi_line(CLOCKS)}")
     return rows
+
+
+# ------------------------------------- the bench entry and the CLI flags
+def bench_run(device, shape=None, timeout=900):
+    """Phase bench: the bench entry (``python -m coldrec_tpu_torch.bench``)
+    in a subprocess, at full shape unless ``shape`` (users, items); its
+    one JSON line parsed and logged, every figure finite and positive, its
+    ``device_kind`` this card's. Then in this process, at each of the
+    bench's sweep shapes, the kernel's lists (``retrieval_topk``) held to
+    the plain route's by the rule of ``compare_lists``. Returns the line
+    and the launches of both processes (the bench's from its line)."""
+    device = torch.device(device)
+    cmd = [sys.executable, "-m", "coldrec_tpu_torch.bench", "--device",
+           device.type]
+    if shape:
+        cmd += ["--users", str(shape[0]), "--items", str(shape[1])]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, check=False,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench entry exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    log(f"  bench ({time.perf_counter() - t:.2f} s): {lines[0]}")
+    cuda = device.type == "cuda"
+    kind = torch.cuda.get_device_name(device) if cuda else "cpu"
+    count = torch.cuda.device_count() if cuda else 0
+    if (line["device_kind"], line["device_count"]) != (kind, count):
+        raise AssertionError(f"bench device {line['device_kind']!r} x "
+                             f"{line['device_count']}, here {kind!r} x "
+                             f"{count}")
+    figures = {k: v for k, v in line.items() if k != "device_count"
+               and isinstance(v, (int, float)) and not isinstance(v, bool)}
+    bad = {k: v for k, v in figures.items()
+           if not (np.isfinite(v) and v > 0)}
+    missing = [k for k, v in line.items() if v is None] if cuda else []
+    if bad or missing:
+        raise AssertionError(f"bench figures not finite and positive: "
+                             f"{bad}, not measured: {missing}")
+    reset_launches()
+    for problem in (tbench._make_problem(*(shape or (tbench.BC_USERS,
+                                                     tbench.BC_ITEMS))),
+                    tbench._make_problem(*(shape or (tbench.ML_USERS,
+                                                     tbench.ML_ITEMS)),
+                                         seed=1)):
+        ue, ie, rated, excl = (torch.as_tensor(a, device=device)
+                               for a in problem)
+        _, ids = retrieval_topk(ue, ie, rated, excl, tbench.TOP_K,
+                                device=device)
+        ref = np.concatenate([ret._exact_rows(
+            ue[s:s + 1024], ie, rated[s:s + 1024].long(), excl,
+            tbench.TOP_K)[1] for s in range(0, ue.shape[0], 1024)])
+        rows, equal = compare_lists(ue, ie, np.arange(ue.shape[0]), ids, ref)
+        log(f"  {ue.shape[0]} x {ie.shape[0]}: kernel lists id-equal to the "
+            f"plain route on {equal}/{rows} rows (others near-ties)")
+    here = launch_counts()
+    launches = {k: here[k] + line["kernel_launches"][k]
+                for k in ("fused_sweep", "fused_sweep_bf16", "merge_parts")}
+    log(f"  launches: bench process {line['kernel_launches']}, lists "
+        f"{ {k: here[k] for k in launches} }")
+    if cuda and not (launches["fused_sweep"] and launches["fused_sweep_bf16"]):
+        raise AssertionError(f"the bench left a sweep unlaunched: {launches}")
+    return line, launches
+
+
+def ml_split(root, ds="ml_synth", n_users=ML[0], n_items=ML[1],
+             n_inter=ML[2], seed=0):
+    """A split of ``synthetic_interactions`` at MovieLens-1M shape under
+    ``root/ds``: no user is rated beyond the kernel's candidates (unlike
+    the latent split of phase cold-signal), so every split sweeps through
+    the kernel."""
+    t = time.perf_counter()
+    res = write_split(root, ds, synthetic_interactions(
+        n_users, n_items, n_inter, seed=seed), seed, 1)
+    log(f"  split {ds} written ({time.perf_counter() - t:.2f} s): max train "
+        f"degree {np.bincount(res.warm_train[:, 0]).max()}")
+    return ColdStartDataset.from_split_dir(root, ds, "item")
+
+
+def trace_kernels(path):
+    """({kernel name: device microseconds}, the trace) of a Chrome
+    trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    out = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("cat") == "kernel":
+            out[ev["name"]] = out.get(ev["name"], 0.0) + float(ev["dur"])
+    return out, trace
+
+
+def profile_run(device, root, ds="ml_synth", d=D, bs=4096, seed=0, top=10):
+    """Phase profile: MF for one epoch through the CLI on phase ``ml_split``'s
+    split, plain, then with ``--profile DIR`` and with ``--debug_nans``.
+    The trace must exist, load as JSON, hold CPU ops and (on the card)
+    name ``fused_sweep_kernel`` among its device kernels: the ctypes-loaded
+    library's launches seen by the profiler. Logs the top ``top`` kernels
+    by device time and each run's seconds per epoch. Returns the launches
+    of the three runs."""
+    device = torch.device(device)
+    pdir = os.path.join(root, "profile")
+    launches = dict.fromkeys(("fused_sweep", "fused_sweep_bf16",
+                              "merge_parts"), 0)
+    per_epoch = {}
+    for tag, flags in (("plain", ()), ("profile", ("--profile", pdir)),
+                       ("debug_nans", ("--debug_nans", "true"))):
+        payload, got, evs, secs = cli_run(
+            device, root, ds, "MF", 1, flags, d, bs, seed,
+            tag=f"MF_{tag}")
+        for k in launches:
+            launches[k] += got[k]
+        log_epochs(evs)
+        per_epoch[tag] = payload["efficiency"][
+            "seconds_per_completed_epoch_mean"]
+        log(f"  MF {tag}: {secs:.2f} s (CLI), {per_epoch[tag]:.3f} s per "
+            f"epoch, launches { {k: v for k, v in got.items() if v} }")
+    traces = sorted(f for f in os.listdir(pdir) if f.endswith(".json"))
+    if len(traces) != 1:
+        raise AssertionError(f"{pdir} holds {traces}, one trace expected")
+    path = os.path.join(pdir, traces[0])
+    kernels, trace = trace_kernels(path)
+    cpu_ops = sum(ev.get("cat") == "cpu_op"
+                  for ev in trace.get("traceEvents", []))
+    total = sum(kernels.values())
+    log(f"  trace {traces[0]}: {os.path.getsize(path) / 2**20:.1f} MiB, "
+        f"{cpu_ops} CPU ops, {len(kernels)} kernels, {total / 1e3:.3f} ms "
+        f"of device time; top {top} by device time:")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}%  "
+            f"{name[:110]}")
+    sweeps = [n for n in kernels if "fused_sweep_kernel" in n]
+    if not cpu_ops or device.type == "cuda" and not sweeps:
+        raise AssertionError(f"the trace shows {cpu_ops} CPU ops and no "
+                             f"fused_sweep_kernel among {sorted(kernels)[:20]}")
+    log(f"  seconds per epoch: plain {per_epoch['plain']:.3f}, --profile "
+        f"{per_epoch['profile']:.3f}, --debug_nans "
+        f"{per_epoch['debug_nans']:.3f}; fused_sweep_kernel in the trace: "
+        f"{[kernels[n] / 1e3 for n in sweeps]} ms")
+    return launches
+
+
+def fused_run(device, root, data, ds="ml_synth", k=8, epochs=2, d=D,
+              bs=4096, seed=0, topN=(10, 20),
+              runs=(("MF", ()), ("XSimGCL", ("--layers", "2")))):
+    """Phase fused: each model for ``epochs`` epochs through the CLI with
+    ``--fused_steps k`` and with ``--fused_steps 0`` on phase
+    ``ml_split``'s split, under ``torch.use_deterministic_algorithms`` so
+    that the SpMM tail's ``index_add_`` sums in a fixed order (its atomics
+    would part the runs on their own). The bus tables must agree within
+    ``tests/test_fused_steps.py``'s tolerance (rtol 1e-5, atol 1e-6), the
+    three-way-test lists id-equal but at near-ties; each run's epochs are
+    logged (host enqueue and device step). Returns the launches."""
+    device = torch.device(device)
+    launches = dict.fromkeys(("fused_sweep", "fused_sweep_bf16",
+                              "merge_parts"), 0)
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for model, flags in runs:
+                tables = {}
+                for fs in (0, k):
+                    emb = os.path.join(root, f"emb_fused{fs}")
+                    _, got, evs, secs = cli_run(
+                        device, root, ds, model, epochs,
+                        (*flags, "--fused_steps", str(fs), "--emb_dir", emb),
+                        d, bs, seed, topN, tag=f"{model}_fused{fs}")
+                    for name in launches:
+                        launches[name] += got[name]
+                    log(f"  {model} --fused_steps {fs}: {secs:.2f} s (CLI)")
+                    log_epochs(evs)
+                    bus = load_embeddings(emb, ds, "item", model)
+                    tables[fs] = [torch.as_tensor(bus[key], device=device)
+                                  for key in ("user_emb", "item_emb")]
+                hold_fused(model, data, tables[0], tables[k], device, topN)
+        finally:
+            torch.use_deterministic_algorithms(was)
+    return launches
+
+
+def hold_fused(model, data, base, fused, device, topN):
+    """The fused run's bus tables and three-way-test lists against the
+    per-batch run's."""
+    gaps = [float((a - b).abs().max()) for a, b in zip(base, fused)]
+    for a, b in zip(base, fused):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    lists = {}
+    for tabs in (base, fused):
+        res = three_way_test(data, *tabs, topN=topN, device=device,
+                             verbose=False)
+        for setting, r in res.items():
+            lists.setdefault(setting, []).append(r["rec"])
+    equal = {}
+    for setting, (a, b) in lists.items():
+        es = data.eval_splits[SETTING_SPLITS[(setting, "test")]]
+        equal[setting] = "/".join(map(str, compare_lists(
+            *base, es.users, a, b)[::-1]))
+    log(f"  {model}: fused vs per-batch tables max abs diff {gaps}; test "
+        f"lists id-equal {equal}")
 
 
 def build_all():
@@ -3074,6 +3123,16 @@ def main() -> int:
     run_phase("checks", CHECKS.join)
     run_phase("usim-split", usim_step_split, usim_trainer)
     del usim_trainer
+    bench_line, bench_launches = run_phase("bench", bench_run, device)
+    with tempfile.TemporaryDirectory() as root:
+        ml_data = run_phase("ml-split", ml_split, root)
+        profile_launches = run_phase("profile", profile_run, device, root)
+        fused_launches = run_phase("fused", fused_run, device, root, ml_data)
+    entry_launches = {name: bench_launches[name] + profile_launches[name]
+                      + fused_launches[name] for name in bench_launches}
+    log(f"  bench, profile and fused phases: {entry_launches} launches "
+        f"(bench {bench_launches}, profile {profile_launches}, fused "
+        f"{fused_launches})")
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
     for n, r in ((2048, t), (SERVE_USERS, t512)):
@@ -3108,7 +3167,8 @@ def main() -> int:
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
         "launches": (launches["fused_sweep"] + graph_launches["fused_sweep"]
                      + knn["launches"]["fused_sweep"]
-                     + content_launches["fused_sweep"]),
+                     + content_launches["fused_sweep"]
+                     + entry_launches["fused_sweep"]),
         "max_abs_err": max([e["max_abs_err"] for e in errs]
                            + [exact["fused_sweep"]]),
         "ms": t["ms"],
@@ -3122,7 +3182,8 @@ def main() -> int:
         "route": "cuda",
         "source": "coldrec_tpu_torch/csrc/retrieval.cu",
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:281",
-        "launches": bf16_launches["fused_sweep_bf16"],
+        "launches": (bf16_launches["fused_sweep_bf16"]
+                     + entry_launches["fused_sweep_bf16"]),
         "max_abs_err": max(errs[1]["bf16_err"], exact["fused_sweep_bf16"]),
         **{k: b16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "fp32_fma_bound_ms", "library_ms",
@@ -3135,7 +3196,8 @@ def main() -> int:
         "replaces": "coldrec_tpu/ops/pallas/retrieval.py:63",
         "launches": (launches["merge_parts"] + graph_launches["merge_parts"]
                      + knn["launches"]["merge_parts"]
-                     + content_launches["merge_parts"]),
+                     + content_launches["merge_parts"]
+                     + entry_launches["merge_parts"]),
         "max_abs_err": max(errs[1]["merge_err"], exact["merge_parts"]),
         **{k: tm[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")},

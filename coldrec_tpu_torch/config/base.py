@@ -2,9 +2,9 @@
 ``coldrec_tpu/config/base.py``; reference main.py:90-143 argparse defaults).
 
 The same flag names and defaults as the JAX package's CLI, plus ``--device``
-(default ``cuda``). The flags the port does not carry out yet are refused
-where they take effect (``models/warm_base.py``, ``runtime/trainer.py``,
-``main.py``), each naming the ROADMAP item that brings it.
+(default ``cuda``). ``--mesh``, which the port does not carry out yet, is
+refused where it takes effect (``models/warm_base.py``), naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -45,10 +45,12 @@ COMMON_DEFAULTS = dict(
     # (its plain version on the CPU), pallas_bf16 = its bf16 mode, xla =
     # the plain matmul + top-k
     eval_backend="auto",
-    # profiler trace directory and NaN trap of the JAX CLI (not in the port)
+    # torch.profiler trace directory (main.py) and NaN trap: anomaly mode
+    # and finite checks of each step's loss and of the eval tables
     profile="",
     debug_nans=False,
-    # K train steps per device program (ROADMAP Queue 1, item 8); 0 = off
+    # K train steps on one stacked upload, no host sync between them
+    # (models/warm_base.py); 0 or 1 = the per-batch loop
     fused_steps=0,
     # the port's device: "cuda" (the card) or "cpu"
     device="cuda",

@@ -8,7 +8,12 @@ main.py): the same flags (plus ``--device``, default ``cuda``), the
 multi-run seed loop (run r uses seed=r when runs>1, else --seed,
 main.py:163), mean±std aggregation per topN x {all,cold,warm} x
 {hit,precision,recall,ndcg}, seconds per completed epoch, and the text+JSON
-result file block (main.py:207-301), appended or overwritten. Ported: MF,
+result file block (main.py:207-301), appended or overwritten, and the JAX
+CLI's ``--profile DIR`` (a ``torch.profiler`` trace of the whole run, with
+the card's kernels, exported as a Chrome trace under DIR) and
+``--debug_nans`` (autograd's anomaly mode plus the trainer's finite checks
+of every step's loss and of the eval tables, ``FloatingPointError`` as
+``jax_debug_nans`` raises). Ported: MF,
 the graph backbones LightGCN, NGCF, SimGCL, XSimGCL and NCL, the
 cold-start models DropoutNet, GAR, ALDI, DeepMusic, DUIF, Heater, AGNN,
 VBPR, MetaEmbedding, LARA and GoRec, which read the backbone's tables from
@@ -21,11 +26,13 @@ RL refinement of the backbone's cold item rows (item cold start only): all
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from datetime import datetime
 
 import numpy as np
+import torch
 
 from .config import make_args
 from .models import model_factory
@@ -47,12 +54,47 @@ def _args_to_serializable(ns):
 
 def run(args) -> dict:
     """Train and test ``args.runs`` times, print the aggregate and write the
-    result file; returns the JSON payload."""
-    if str(getattr(args, "profile", "") or "") or getattr(args, "debug_nans",
-                                                          False):
-        raise NotImplementedError(
-            "--profile and --debug_nans are not in the port (ROADMAP.md "
-            "Queue 1, item 8)")
+    result file; returns the JSON payload. ``--debug_nans`` turns on
+    autograd's anomaly mode for the run, ``--profile DIR`` traces it."""
+    profile_dir = str(getattr(args, "profile", "") or "")
+    with contextlib.ExitStack() as stack:
+        if getattr(args, "debug_nans", False):
+            stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        if profile_dir:
+            stack.enter_context(profiled(
+                profile_dir, torch.device(getattr(args, "device", "cuda"))))
+        return _run(args)
+
+
+@contextlib.contextmanager
+def profiled(out_dir: str, device: torch.device):
+    """``torch.profiler`` over the block: CPU activity, and CUDA activity on
+    the card (every kernel, the ctypes-launched ones too). Stopped in a
+    ``finally``; then the Chrome trace goes to
+    ``out_dir/trace_<time>_<pid>.json`` (the directory made if missing) and
+    the top 15 entries by self device time (CPU time on the CPU) are
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(out_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        stamp = datetime.now().strftime("%Y%m%d-%H%M%S")
+        path = os.path.join(out_dir, f"trace_{stamp}_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        sort = "self_device_time_total" if cuda else "self_cpu_time_total"
+        print(prof.key_averages().table(sort_by=sort, row_limit=15))
+        print(f"Profiler trace written to: {out_dir}")
+
+
+def _run(args) -> dict:
     config = Config(args)
     top_ns = [int(x) for x in str(args.topN).split(",")]
     settings = ["all", "cold", "warm"]

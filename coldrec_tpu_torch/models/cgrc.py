@@ -201,6 +201,8 @@ class CGRCTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded weights."""
 
+    fused_ok = False  # the JAX package's CGRC wires its own step
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.require_item_cold()

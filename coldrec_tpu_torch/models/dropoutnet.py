@@ -99,6 +99,8 @@ class DropoutNetTrainer(ColdStartModelBase):
     """``init_params`` / ``init_state`` (the JAX trainer's ``params`` and
     ``net_state`` as numpy) replace the seeded towers and the bus tables."""
 
+    fused_ok = False  # BatchNorm state: stateful in the JAX package
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)

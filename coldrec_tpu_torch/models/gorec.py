@@ -113,6 +113,8 @@ class GoRecTrainer(ColdStartModelBase):
     ``kmeans_init`` the k-means' initial rows (the JAX package draws them
     with ``jax.random.choice``)."""
 
+    fused_ok = False  # BatchNorm state: stateful in the JAX package
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None, kmeans_init=None):
         super().__init__(config)

@@ -28,6 +28,22 @@ Each epoch's time is split into host batch building, upload, the step (host
 enqueue and, on the card, device time from CUDA events), the refresh of the
 eval tables (``refresh_s``) and validation, kept in ``epoch_stats`` and sent
 to the event log.
+
+``--fused_steps K`` (the JAX package's ``lax.scan`` over K stacked batches)
+stacks K host batches of one shape, uploads each key's stack in one
+transfer and runs the K steps on its slices with no host sync in between;
+the group's losses are read at most once (where a print falls in it). The
+steps, their order and every draw are the per-batch loop's. A group's
+stacking counts as upload, its CUDA events span its K steps. Only the
+default Adam over every parameter qualifies (``fused_ok``, JAX's
+``_fused_ok``); a tail shorter than K, and a batch whose shapes differ
+from its group's, run per batch.
+
+``--debug_nans`` (JAX's ``jax_debug_nans``; ``main.run`` turns on autograd's
+anomaly mode, which checks every backward for NaN): each step's loss must
+be finite and so must the eval tables at every refresh, else
+``FloatingPointError`` names the epoch and batch. Off, nothing is checked
+and nothing syncs.
 """
 from __future__ import annotations
 
@@ -76,6 +92,11 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     ``forward_tables()``, then call ``setup_optimizer()``."""
 
     model: torch.nn.Module
+    # --fused_steps replays ``train_step`` on stacked batches; a model whose
+    # JAX counterpart keeps network state (BatchNorm) or builds its own step
+    # sets this False and keeps the per-batch loop, as there
+    fused_ok = True
+    current_epoch = None  # the epoch being trained, for --debug_nans
 
     def setup_optimizer(self, param_groups=None, optimizer=None):
         """Adam over ``param_groups`` (torch's parameter groups, each with
@@ -87,10 +108,8 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             raise NotImplementedError(
                 "--mesh: the port trains on one device; mesh training comes "
                 "with ROADMAP.md Queue 1, item 7")
-        if int(getattr(self.args, "fused_steps", 0) or 0) > 1:
-            raise NotImplementedError(
-                "--fused_steps > 1 is not in the port (ROADMAP.md Queue 1, "
-                "item 8)")
+        self._fused_ok = (self.fused_ok and param_groups is None
+                          and optimizer is None)
         if optimizer is None:
             optimizer = torch.optim.Adam(
                 [p for p in self.model.parameters() if p.requires_grad]
@@ -108,6 +127,19 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             ue, ie = self.forward_tables()
             self.user_emb, self.item_emb = ue.clone(), ie.clone()
         self.model.train()
+        if self.debug_nans:
+            for side, table in (("user", self.user_emb),
+                                ("item", self.item_emb)):
+                if not bool(torch.isfinite(table).all()):
+                    when = ("before training" if self.current_epoch is None
+                            else f"after epoch {self.current_epoch + 1}")
+                    raise FloatingPointError(
+                        f"--debug_nans: non-finite values in the {side} "
+                        f"eval table of {self.model_name} {when}")
+
+    @property
+    def debug_nans(self) -> bool:
+        return bool(getattr(self.args, "debug_nans", False))
 
     def init_module(self, cls, init_params=None, init_state=None, **kw):
         """``cls(**kw, device=...)``, seeded from ``--seed``, or the module
@@ -162,6 +194,62 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         self.optimizer.step()
         return loss.detach()
 
+    def _use_fused(self) -> int:
+        """K of ``--fused_steps`` where it applies (K > 1 and ``fused_ok``
+        with the default optimizer), else 0: the per-batch loop."""
+        k = int(getattr(self.args, "fused_steps", 0) or 0)
+        return k if k > 1 and getattr(self, "_fused_ok", False) else 0
+
+    def _groups(self, k: int, secs: Dict):
+        """The epoch's batches in their order: lists of ``k`` batches of one
+        shape, every other batch alone (``k`` 0: each alone). Seconds spent
+        drawing them go to ``secs["host_s"]``."""
+        it = iter(self.batches())
+        group = []
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            secs["host_s"] += time.perf_counter() - t
+            if batch is None:
+                break
+            if group and _shapes(batch) != _shapes(group[0]):
+                yield from ([b] for b in group)
+                group = []
+            group.append(batch)
+            if len(group) >= max(k, 1):
+                yield group
+                group = []
+        yield from ([b] for b in group)
+
+    def upload_group(self, group) -> List[Dict[str, torch.Tensor]]:
+        """Batches of one shape stacked on the host, each key's stack
+        uploaded in one transfer; returns the device batches (views)."""
+        if len(group) == 1:
+            return [self.upload(group[0])]
+        stacked = self.upload({key: np.stack([b[key] for b in group])
+                               for key in group[0]})
+        return [{key: v[i] for key, v in stacked.items()}
+                for i in range(len(group))]
+
+    def _checked_step(self, batch, epoch: int, n: int) -> torch.Tensor:
+        """``train_step``; under ``--debug_nans`` a NaN in its backward
+        (anomaly mode's RuntimeError) or a non-finite loss raises
+        ``FloatingPointError`` naming the epoch and batch."""
+        if not self.debug_nans:
+            return self.train_step(batch)
+        where = f"epoch {epoch + 1} batch {n}"
+        try:
+            loss = self.train_step(batch)
+        except RuntimeError as e:
+            if "returned nan values" not in str(e):
+                raise
+            raise FloatingPointError(
+                f"--debug_nans: NaN in the backward of {where}: {e}") from e
+        if not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"--debug_nans: loss {float(loss)} at {where}")
+        return loss
+
     def _train_epoch(self, epoch: int) -> Dict:
         cuda = self.device.type == "cuda"
         if cuda:
@@ -169,33 +257,29 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         t_epoch = time.perf_counter()
         secs = dict.fromkeys(("host_s", "upload_s", "step_host_s"), 0.0)
         losses, marks = [], []
-        batches = iter(self.batches())
         n = 0
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
+        for group in self._groups(self._use_fused(), secs):
             t1 = time.perf_counter()
-            secs["host_s"] += t1 - t0
-            if batch is None:
-                break
-            dev_batch = self.upload(batch)
+            dev_batches = self.upload_group(group)
             t2 = time.perf_counter()
             secs["upload_s"] += t2 - t1
             if cuda:
                 marks.append((torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True)))
                 marks[-1][0].record()
-            loss = self.train_step(dev_batch)
+            group_losses = [self._checked_step(b, epoch, n + i)
+                            for i, b in enumerate(dev_batches)]
             if cuda:
                 marks[-1][1].record()
             secs["step_host_s"] += time.perf_counter() - t2
-            losses.append(loss)
-            if n % 50 == 0:
-                print(
-                    f"training: {epoch + 1} batch {n} "
-                    f"batch_loss: {float(loss):.5f}"
-                )
-            n += 1
+            losses.extend(group_losses)
+            prints = [i for i in range(len(group)) if (n + i) % 50 == 0]
+            if prints:
+                read = torch.stack(group_losses).tolist()
+                for i in prints:
+                    print(f"training: {epoch + 1} batch {n + i} "
+                          f"batch_loss: {read[i]:.5f}")
+            n += len(group)
         losses = torch.stack(losses).tolist() if losses else []
         stats = {
             "epoch": epoch + 1,
@@ -260,6 +344,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         start_epoch = self._try_resume()
         epoch = start_epoch - 1
         for epoch in range(start_epoch, self.max_epoch):
+            self.current_epoch = epoch
             self.epoch_hook(epoch)
             stats = self._train_epoch(epoch)
             t = time.perf_counter()
@@ -279,6 +364,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
                 break
             if self._ckpt_path():
                 self._save_train_state(epoch)
+        self.current_epoch = None
         self.epochs_ran = (epoch + 1) if self.max_epoch > 0 else 0
         self.timer(start=False)
         self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
@@ -301,3 +387,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     def batch_scores(self, user_ids: np.ndarray) -> torch.Tensor:
         idx = torch.as_tensor(np.asarray(user_ids), device=self.device).long()
         return exact_scores(self.user_emb[idx], self.item_emb)
+
+
+def _shapes(batch: Dict[str, np.ndarray]) -> Dict:
+    return {key: v.shape for key, v in batch.items()}

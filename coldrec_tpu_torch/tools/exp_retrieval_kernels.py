@@ -31,7 +31,6 @@ never falls back from a CUDA tensor.
 from __future__ import annotations
 
 import argparse
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +43,7 @@ from ..ops.cuda.retrieval import (
     _round_up, empty_candidates, fused_sweep,
 )
 from ..runtime.eval import exact_scores
+from ..utils.timing import time_ms
 
 DOT_CHUNK = 1024  # users per score plane in dot_sweep_reference
 
@@ -293,33 +293,6 @@ def stream_sweep_reference(users, items_t, excl, block_i, p_acc=1,
 
 
 # ------------------------------------------------------------------- timing
-def time_ms(fn, iters: int, device, repeats: int = 3) -> float:
-    """Best mean milliseconds per call of ``iters`` calls in a row, over
-    ``repeats`` runs after one warm-up call: CUDA events on a card, the
-    host clock on the CPU."""
-    device = torch.device(device)
-    fn()
-    best = float("inf")
-    for _ in range(repeats):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / iters
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            ms = (time.perf_counter() - t0) * 1e3 / iters
-        best = min(best, ms)
-    return best
-
-
 def graph_ms(fn, iters: int, device, repeats: int = 3) -> float:
     """Best milliseconds per call of ``iters`` calls of ``fn`` captured in
     one CUDA graph and replayed, timed with CUDA events: the device time

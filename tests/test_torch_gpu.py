@@ -905,3 +905,39 @@ def test_usim_batch_step_on_card_matches_cpu(cuda, tmp_path):
                                   with_actions=True)
         assert torch.equal(acts_card.cpu(), acts_cpu)
         assert isinstance(m[0], tusim.USIM)
+
+
+# ------------------------------------ the bench entry, --fused_steps
+def test_bench_entry_gives_finite_device_figures(cuda):
+    """The bench entry at a reduced sweep shape: every figure of its line
+    (device times included) finite and positive, the card named, both
+    sweeps launched."""
+    from coldrec_tpu_torch import bench as tbench
+
+    line = tbench.run("cuda", shape=(512, 20000))
+    figures = {k: v for k, v in line.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    assert all(np.isfinite(v) and v > 0 for v in figures.values()), figures
+    assert not [k for k, v in line.items() if v is None], line
+    assert line["device_kind"] == torch.cuda.get_device_name(0)
+    assert line["kernel_launches"]["fused_sweep"] > 0
+    assert line["kernel_launches"]["fused_sweep_bf16"] > 0
+
+
+def test_fused_steps_on_card_equal_per_batch(cuda):
+    """MF with --fused_steps 4 on the card: the same tables (the tolerance
+    of tests/test_fused_steps.py) and test results as the per-batch loop."""
+    data = _small_data()
+    init = _init_tables(data)
+    runs = []
+    for k in (0, 4):
+        tm = _mf_trainer(data, cuda, init, epochs=2, fused_steps=k)
+        assert tm._use_fused() == k
+        tm.run()
+        runs.append(tm)
+    base, fused = runs
+    for a, b in ((base.user_emb, fused.user_emb),
+                 (base.item_emb, fused.item_emb)):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    assert base.overall_test_results == fused.overall_test_results
+    assert base.cold_test_results == fused.cold_test_results

@@ -10,7 +10,8 @@ element whose gradient cancels to ~0 could flip sign between the two
 scatter-add orders and move by up to 2 * lr; none does here.
 
 Also: early stopping at the same epoch, resume bit for bit, the non-finite
-quarantine, the best epoch's tables on the bus, the refused flags, and the
+quarantine, the best epoch's tables on the bus, the refused flags (and the
+accepted ``--fused_steps``), ``--profile`` and ``--debug_nans``, and the
 CLI's result file against ``main.py``'s.
 """
 import json
@@ -249,12 +250,15 @@ def test_plain_and_kernel_backends_agree(datasets):
 
 @pytest.mark.parametrize("overrides,error,match", [
     (dict(mesh="2x1"), NotImplementedError, "Queue 1, item 7"),
-    (dict(fused_steps=4), NotImplementedError, "Queue 1, item 8"),
+    (dict(fused_steps=4), None, None),  # accepted: K steps a group
     (dict(eval_backend="bf16"), ValueError, "pallas_bf16"),
     (dict(eval_backend="tpu"), ValueError, "eval_backend"),
 ])
 def test_refused_flags(datasets, overrides, error, match):
     _, td = datasets
+    if error is None:
+        assert _port(td, epochs=1, **overrides)._use_fused() == 4
+        return
     with pytest.raises(error, match=match):
         _port(td, epochs=1, **overrides)
 
@@ -335,12 +339,25 @@ def test_cli_result_file_matches_main_py(split_dir, tmp_path):
     assert open(tres).read().count("=== ColdRec Run Result ===") == 2
 
 
-def test_cli_refuses_profile_and_debug_nans(split_dir, tmp_path):
-    for flag in (["--profile", str(tmp_path)], ["--debug_nans", "true"]):
-        args = make_args(["--data_dir", split_dir, "--dataset", "synthds",
-                          "--device", "cpu"] + flag)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            tmain.run(args)
+def test_cli_profile_and_debug_nans(split_dir, tmp_path, capsys):
+    """``--profile DIR`` writes a Chrome trace of the run (CPU ops on the
+    CPU) and prints the JAX CLI's line; ``--debug_nans`` runs to the end on
+    finite weights and leaves anomaly mode off afterwards."""
+    flags = ["--data_dir", split_dir, "--dataset", "synthds", "--device",
+             "cpu", "--epochs", "1", "--emb_size", "8", "--bs", "256",
+             "--emb_dir", str(tmp_path / "emb")]
+    pdir = tmp_path / "trace"
+    tmain.run(make_args(flags + ["--profile", str(pdir), "--result_file",
+                                 str(tmp_path / "p.txt")]))
+    assert f"Profiler trace written to: {pdir}" in capsys.readouterr().out
+    (trace,) = pdir.iterdir()
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    payload = tmain.run(make_args(flags + ["--debug_nans", "true",
+                                           "--result_file",
+                                           str(tmp_path / "d.txt")]))
+    assert payload["hyperparameters"]["debug_nans"] is True
+    assert not torch.is_anomaly_enabled()
 
 
 def test_profile_train_tool_runs_on_cpu():
