@@ -201,6 +201,29 @@ Phases, each printed with its seconds:
               part the runs on their own): bus tables within rtol 1e-5,
               atol 1e-6, test lists id-equal but at near-ties, each run's
               epochs logged;
+  mesh        the process group and the mesh (``coldrec_tpu_torch/parallel``):
+              ranks are subprocesses of this script (``--rank``, started by
+              ``launch_ranks`` with the ``COLDREC_*`` variables), all on
+              ``cuda:0``, their collectives over gloo through host memory,
+              every check against one rank in this process: (a) a 1x2 mesh
+              ``RetrievalServer`` on phase train's split with MF tables
+              seeded as phase slice's (92,107 x 270,170, d=64; each rank
+              sweeps its 135,085 items): 4 requests of 512 users and one of
+              2048, excluding rated items, lists equal to the one-rank
+              server's by the rule of phase 3, every rank launching
+              ``fused_sweep`` on every request, seconds per request logged
+              beside the one-rank server's and the staging seconds; (b) MF
+              ``--mesh 1x2`` one epoch on phase train's split, kernel eval,
+              deterministic algorithms on in the ranks and the one-rank
+              run: losses and bus tables bit-equal to one rank's, equal test
+              metrics, rank 0 alone writing the result file (both ranks
+              append to one) and the bus; (c) MF on 2 ranks with no
+              ``--mesh`` (data-parallel) one epoch on phase profile's split
+              with the plain (partitioned) eval: losses within 1e-5
+              relative, test metrics within 1e-9 or, where they differ, the
+              lists of both buses id-equal but at near-ties; (d) LightGCN
+              ``--mesh 2x2`` (4 ranks, 2 layers) held as (c), kernel eval.
+              (b)-(d) run at once, beside the one-rank runs;
   8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep, its bf16 instance
               and the merge): the kernel, its plain version and one library
@@ -270,6 +293,11 @@ from coldrec_tpu_torch.ops.cuda import build as kbuild
 from coldrec_tpu_torch.ops.cuda import retrieval as ret
 from coldrec_tpu_torch.ops import knn as knn_mod
 from coldrec_tpu_torch.ops.kmeans import kmeans
+from coldrec_tpu_torch.parallel.distributed import (
+    host_staging, init_distributed, launch_ranks, rank_device,
+    run_collective, shutdown_distributed,
+)
+from coldrec_tpu_torch.parallel.mesh import make_mesh
 from coldrec_tpu_torch.ops.cuda.retrieval import (
     CANDIDATES, INIT_NEG, LANES, SLOTS, USER_CHUNK, fused_sweep,
     fused_sweep_reference, merge_parts, merge_parts_reference, pad_items,
@@ -465,6 +493,10 @@ COUNTERS = {
     "skip_sweep": (ebs.skip_sweep, "launches"),
 }
 VARIANTS = ("dot_sweep", "stream_sweep", "multiacc_sweep", "skip_sweep")
+MESH_SERVE = (SERVE_USERS,) * 4 + (2048,)  # users per request, phase mesh (a)
+MESH_LOSS_RTOL = 1e-5
+MESH_METRIC_TOL = 1e-9  # tests/test_multiprocess.py
+MESH_RANK_S = 600  # a rank group's time limit
 T0 = time.perf_counter()
 
 
@@ -3042,6 +3074,306 @@ def hold_fused(model, data, base, fused, device, topN):
         f"lists id-equal {equal}")
 
 
+# ------------------------------------------------------------ phase mesh
+def rank_main(argv) -> int:
+    """One rank of phase mesh: ``chip_smoke.py --rank cli FLAGS...`` runs
+    the port's CLI entry (``main.run``) on the CLI's flags, ``--rank serve
+    SPEC`` answers the requests of a JSON spec through a 1x2 mesh
+    ``RetrievalServer``; ``--deterministic`` among the flags turns on
+    deterministic algorithms. The event log (if any) gets ``.rank<r>``
+    appended. Prints its device, launch counts and host staging as its
+    last line (the collectives' calls and seconds too), then leaves
+    through a barrier."""
+    kind, rest = argv[0], list(argv[1:])
+    if "--deterministic" in rest:
+        rest.remove("--deterministic")
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    rank = int(os.environ["COLDREC_PROCESS_ID"])
+    if os.environ.get("COLDREC_EVENT_LOG"):
+        os.environ["COLDREC_EVENT_LOG"] += f".rank{rank}"
+    reset_launches()
+    extra = {}
+    if kind == "cli":
+        args = make_args(rest)
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            tmain.run(args)
+        device = args.device
+        extra["backend"] = [ln for ln in out.getvalue().splitlines()
+                            if ln.startswith("process group:")]
+    elif kind == "serve":
+        device, extra = serve_rank(rest[0])
+    else:
+        raise ValueError(f"--rank {kind!r}: cli or serve")
+    line = {"rank": rank, "device": str(device), "launches": launch_counts(),
+            "staging_s": host_staging.seconds,
+            "staging_bytes": host_staging.bytes,
+            "collectives": run_collective.calls,
+            "collective_s": run_collective.seconds, **extra}
+    shutdown_distributed()
+    print(json.dumps(line), flush=True)
+    return 0
+
+
+def serve_rank(spec_path: str):
+    """Phase mesh (a) on one rank: the bus tables behind a 1x2 mesh
+    ``RetrievalServer``, every request of the spec answered in turn (rank 0
+    writes the lists). Returns (device, {"request_s": [...]})."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        init_distributed(device=spec["device"])
+    device = rank_device(spec["device"])
+    data = ColdStartDataset.from_split_dir(spec["root"], spec["ds"], "item")
+    srv = RetrievalServer.from_checkpoint(
+        spec["emb"], spec["ds"], "item", "MF", dataset=data, device=device,
+        mesh=make_mesh(1, 2))
+    requests = np.load(spec["requests"])
+    reset_launches()
+    secs, lists = [], {}
+    for key in sorted(requests.files):
+        t = time.perf_counter()
+        lists[key] = srv.topk(requests[key], K, exclude_rated=True)[1]
+        secs.append(time.perf_counter() - t)
+    if int(os.environ["COLDREC_PROCESS_ID"]) == 0:
+        np.savez(spec["out"], **lists)
+    return device, {"request_s": secs,
+                    "backend": out.getvalue().strip().splitlines()}
+
+
+def run_ranks(tag, argv, n, env, device):
+    """``chip_smoke.py --rank ARGV`` as ``n`` ranks; every rank must exit 0
+    and say it computed on ``device``'s type through a logged backend.
+    Returns their last lines, parsed."""
+    t = time.perf_counter()
+    runs = launch_ranks([sys.executable, os.path.abspath(__file__),
+                         "--rank", *argv], n, MESH_RANK_S, env)
+    failed = [(r, code, out) for r, (code, out) in enumerate(runs) if code]
+    if failed:  # a rank that failed on its own before one that was stopped
+        r, code, out = max(failed, key=lambda f: f[1] > 0)
+        raise AssertionError(f"mesh {tag}: ranks {[f[:2] for f in failed]} "
+                             f"(rank, exit code); rank {r}:\n{out[-3000:]}")
+    lines = [json.loads(out.strip().splitlines()[-1]) for _, out in runs]
+    for line in lines:
+        if not (any("backend" in b for b in line["backend"])
+                and line["device"].startswith(device.type)):
+            raise AssertionError(f"mesh {tag}: rank {line['rank']} logged no "
+                                 f"backend or left {device.type}: {line}")
+    log(f"  {tag}: {n} ranks {time.perf_counter() - t:.2f} s; "
+        f"{lines[0]['backend'][0]}; per rank: "
+        + "; ".join(f"rank {x['rank']} on {x['device']}: fused_sweep "
+                    f"{x['launches']['fused_sweep']}, {x['collectives']} "
+                    f"collectives {x['collective_s']:.3f} s, staging "
+                    f"{x['staging_s']:.3f} s / "
+                    f"{x['staging_bytes'] / 2**20:.1f} MiB" for x in lines))
+    return lines
+
+
+def _rank_epochs(events, n):
+    """Each rank's per-batch losses, from its event log."""
+    return [[x for e in read_events(f"{events}.rank{r}")
+             if e["event"] == "epoch" for x in e["losses"]]
+            for r in range(n)]
+
+
+def _result_blocks(path) -> int:
+    with open(path, encoding="utf-8") as f:
+        return f.read().count("=== ColdRec Run Result ===")
+
+
+def mesh_serve(device, root, ds, env, d=D, seed=0, serve=MESH_SERVE):
+    """Phase mesh (a). Returns the ranks' fused_sweep launches."""
+    data = ColdStartDataset.from_split_dir(root, ds, "item")
+    mf = MF(data.user_num, data.item_num, d, seed=seed, device=device)
+    ue, ie = (w.detach() for w in mf.forward_tables())
+    emb = os.path.join(root, "emb_mesh")
+    save_embeddings(emb, ds, "item", "MF", {"user_emb": ue, "item_emb": ie})
+    rng = np.random.default_rng(seed + 7)
+    requests = {f"r{j}": rng.choice(data.user_num, n, replace=False)
+                for j, n in enumerate(serve)}
+    req_path = os.path.join(root, "mesh_requests.npz")
+    np.savez(req_path, **requests)
+    srv = RetrievalServer(ue, ie, dataset=data, device=device)
+    one_s, one_ids = [], {}
+    for key in sorted(requests):
+        t = time.perf_counter()
+        one_ids[key] = srv.topk(requests[key], K, exclude_rated=True)[1]
+        one_s.append(time.perf_counter() - t)
+    out = os.path.join(root, "mesh_served.npz")
+    spec = os.path.join(root, "mesh_serve.json")
+    with open(spec, "w") as f:
+        json.dump({"device": device.type, "root": root, "ds": ds,
+                   "emb": emb, "requests": req_path, "out": out}, f)
+    lines = run_ranks("(a) serve 1x2", ["serve", spec], 2, env, device)
+    got = np.load(out)
+    equal = []
+    for key in sorted(requests):
+        rows, same = compare_lists(ue, ie, requests[key], got[key],
+                                   one_ids[key])
+        equal.append(f"{same}/{rows}")
+    per_rank = [x["launches"]["fused_sweep"] for x in lines]
+    if device.type == "cuda" and min(per_rank) < len(serve):
+        raise AssertionError(f"(a): a rank left its item block unswept: "
+                             f"fused_sweep {per_rank}")
+    log(f"  (a) {data.user_num} x {data.item_num} d={d}, "
+        f"{data.item_num // 2} items a rank; requests {list(serve)} "
+        f"users: lists id-equal to one rank's on {equal} rows (others "
+        f"near-ties); seconds per request: mesh "
+        f"{[round(s, 4) for s in lines[0]['request_s']]}, one rank "
+        f"{[round(s, 4) for s in one_s]}; host staging rank 0 "
+        f"{lines[0]['staging_s']:.3f} s")
+    return sum(per_rank)
+
+
+def mesh_train(device, bx_root, ml_root, env, bx="bx_synth", ml="ml_synth",
+               d=D, bs=4096, seed=0, topN=(10, 20), tags="bcd"):
+    """Phase mesh (b)-(d): the rank groups at once in threads, the one-rank
+    runs in this process meanwhile; then the checks. Returns the
+    fused_sweep launches of the ranks and of the one-rank runs."""
+    common = ["--cold_object", "item", "--epochs", "1", "--bs", str(bs),
+              "--emb_size", str(d), "--lr", "0.001", "--reg", "0.0001",
+              "--topN", ",".join(map(str, topN)), "--seed", str(seed),
+              "--save_emb", "true", "--result_overwrite", "false",
+              "--device", device.type]
+    runs = {  # tag: (ranks, split root, dataset, model flags, mesh flags)
+        # (b) is held bit for bit: deterministic algorithms in both runs
+        "b": (2, bx_root, bx, ["--model", "MF"], ["--mesh", "1x2",
+                                                   "--deterministic"]),
+        "c": (2, ml_root, ml, ["--model", "MF", "--eval_backend", "xla"], []),
+        "d": (4, ml_root, ml, ["--model", "LightGCN", "--layers", "2"],
+              ["--mesh", "2x2"]),
+    }
+    runs = {tag: runs[tag] for tag in tags}
+
+    def flags(tag, who):
+        n, root, ds, model, mesh = runs[tag]
+        out = os.path.join(root, f"mesh_{tag}_{who}")
+        return [*common, *model, "--dataset", ds, "--data_dir", root,
+                "--emb_dir", out, "--result_file", out + ".txt",
+                *(mesh if who == "ranks" else [])]
+
+    futures, one = {}, {}
+    with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+        for tag, (n, root, *_) in runs.items():
+            events = os.path.join(root, f"events_mesh_{tag}.jsonl")
+            futures[tag] = pool.submit(
+                run_ranks, f"({tag}) {' '.join(runs[tag][3] + runs[tag][4])}",
+                ["cli", *flags(tag, "ranks")], n,
+                {**env, "COLDREC_EVENT_LOG": events}, device)
+        reset_launches()
+        for tag in runs:
+            events = os.path.join(runs[tag][1], f"events_one_{tag}.jsonl")
+            os.environ["COLDREC_EVENT_LOG"] = events
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    deterministic(tag == "b"):
+                one[tag] = tmain.run(make_args(flags(tag, "one")))
+            event_log().close()
+            one[tag]["losses"] = [x for e in read_events(events)
+                                  if e["event"] == "epoch"
+                                  for x in e["losses"]]
+            log(f"  ({tag}) one rank: {time.perf_counter() - t:.2f} s")
+        one_launches = launch_counts()["fused_sweep"]
+        lines = {tag: fut.result() for tag, fut in futures.items()}
+    for tag, (n, root, ds, model, _) in runs.items():
+        ranks_out = os.path.join(root, f"mesh_{tag}_ranks")
+        one_out = os.path.join(root, f"mesh_{tag}_one")
+        if _result_blocks(ranks_out + ".txt") != 1:
+            raise AssertionError(f"({tag}): the ranks wrote "
+                                 f"{_result_blocks(ranks_out + '.txt')} "
+                                 "result blocks, rank 0 alone should")
+        name = model[1]
+        bus = load_embeddings(ranks_out, ds, "item", name)
+        ref = load_embeddings(one_out, ds, "item", name)
+        events = os.path.join(root, f"events_mesh_{tag}.jsonl")
+        losses = _rank_epochs(events, n)
+        log(f"  ({tag}) rank 0's epoch:")
+        log_epochs(read_events(f"{events}.rank0"))
+        payload = _payload(ranks_out + ".txt")
+        gap = metric_gap(payload["metrics"], one[tag]["metrics"])
+        loss_gap = max(float(np.max(np.abs(np.subtract(x, one[tag]["losses"]))
+                                    / np.abs(one[tag]["losses"])))
+                       for x in losses)
+        table_gap = max(float(np.abs(bus[k] - ref[k]).max())
+                        for k in ("user_emb", "item_emb"))
+        if tag == "b":  # the model axis alone: bit-equal
+            if loss_gap or table_gap or gap:
+                raise AssertionError(
+                    f"(b) MF 1x2 vs one rank: losses {loss_gap}, tables "
+                    f"{table_gap}, metrics {gap}; bit-equal expected")
+            lists = "bit-equal tables"
+        else:
+            if loss_gap > MESH_LOSS_RTOL:
+                raise AssertionError(f"({tag}) losses part from one rank's "
+                                     f"by {loss_gap} relative")
+            lists = "metrics within 1e-9"
+            if gap > MESH_METRIC_TOL:
+                data = ColdStartDataset.from_split_dir(root, ds, "item")
+                tabs = [[torch.as_tensor(t[k], device=device)
+                         for k in ("user_emb", "item_emb")]
+                        for t in (bus, ref)]
+                res = [three_way_test(data, *tb, topN=topN, backend="plain",
+                                      device=device, verbose=False)
+                       for tb in tabs]
+                lists = {s: "/".join(map(str, compare_lists(
+                    *tabs[1], data.eval_splits[SETTING_SPLITS[(s, "test")]]
+                    .users, res[0][s]["rec"], res[1][s]["rec"])[::-1]))
+                    for s in res[0]}
+        log(f"  ({tag}) {n} ranks vs one: losses {loss_gap:.3e} relative "
+            f"({len(losses[0])} steps), tables {table_gap:.3e}, metrics "
+            f"{gap:.3e}; test lists: {lists}; seconds per epoch "
+            + " (ranks) vs ".join(
+                f"{p['efficiency']['seconds_per_completed_epoch_mean']:.3f}"
+                for p in (payload, one[tag])) + " (one)")
+    ranks_launches = sum(x["launches"]["fused_sweep"]
+                         for ls in lines.values() for x in ls)
+    kernel_eval = [x["launches"]["fused_sweep"] for tag in "bd"
+                   if tag in lines for x in lines[tag]]
+    if device.type == "cuda" and not all(v > 0 for v in kernel_eval):
+        raise AssertionError("a rank's kernel eval left fused_sweep "
+                             "unlaunched")
+    return ranks_launches + one_launches
+
+
+def _payload(path) -> dict:
+    with open(path, encoding="utf-8") as f:
+        return json.loads(f.read().split("--- JSON (machine-readable) ---",
+                                         1)[1])
+
+
+def metric_gap(a: dict, b: dict) -> float:
+    """The largest difference of two result files' metric means."""
+    return max(abs(a[tn][s][m]["mean"] - b[tn][s][m]["mean"])
+               for tn in b for s in b[tn] for m in b[tn][s])
+
+
+@contextlib.contextmanager
+def deterministic(on: bool = True):
+    """Deterministic algorithms (warnings only) inside the block."""
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(on or was, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+
+def mesh_run(device, bx_root, ml_root, bx="bx_synth", ml="ml_synth", d=D,
+             bs=4096, seed=0, topN=(10, 20), serve=MESH_SERVE):
+    """Phase mesh: (a) serving, then (b)-(d) training. Returns the
+    fused_sweep launches of the phase."""
+    device = torch.device(device)
+    if device.type == "cuda":  # the ranks share the card with this process
+        torch.cuda.empty_cache()
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    served = mesh_serve(device, bx_root, bx, env, d, seed, serve)
+    trained = mesh_train(device, bx_root, ml_root, env, bx, ml, d, bs, seed,
+                         topN)
+    return {"fused_sweep": served + trained}
+
+
 def build_all():
     """The CUDA library and, on a thread beside it, the host library (the
     sampler and the PPR push); returns (BuildResult, (its path, its
@@ -3079,17 +3411,19 @@ def main() -> int:
     exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
     knn = run_phase("knn", knn_run, device)
-    with tempfile.TemporaryDirectory() as root:
-        run_phase("train", train_run, device, *BX, root=root,
-                  content_dim=BX_CONTENT)
-        bf16_launches, _ = run_phase("cold", cold_run, device, root)
-        content = run_phase("content", content_run, device, root)
-        recon = run_phase("recon", recon_run, device, root)
-        usim_launches, usim_trainer = run_phase("usim", usim_run, device,
-                                                root)
-        graph, _ = run_phase("graph", graph_run, device, root)
-        graph_user = run_phase("graph-user", graph_user_run, device, root,
-                               *BX)
+    stack = contextlib.ExitStack()
+    # phase train's split stays for phase mesh
+    root = bx_root = stack.enter_context(tempfile.TemporaryDirectory())
+    run_phase("train", train_run, device, *BX, root=root,
+              content_dim=BX_CONTENT)
+    bf16_launches, _ = run_phase("cold", cold_run, device, root)
+    content = run_phase("content", content_run, device, root)
+    recon = run_phase("recon", recon_run, device, root)
+    usim_launches, usim_trainer = run_phase("usim", usim_run, device,
+                                            root)
+    graph, _ = run_phase("graph", graph_run, device, root)
+    graph_user = run_phase("graph-user", graph_user_run, device, root,
+                           *BX)
     with tempfile.TemporaryDirectory() as root:
         run_phase("cold-signal", signal_run, device, root)
         graph_ml = run_phase("graph-ml", graph_ml_run, device, root)
@@ -3128,11 +3462,14 @@ def main() -> int:
         ml_data = run_phase("ml-split", ml_split, root)
         profile_launches = run_phase("profile", profile_run, device, root)
         fused_launches = run_phase("fused", fused_run, device, root, ml_data)
+        mesh_launches = run_phase("mesh", mesh_run, device, bx_root, root)
+    stack.close()
     entry_launches = {name: bench_launches[name] + profile_launches[name]
                       + fused_launches[name] for name in bench_launches}
     log(f"  bench, profile and fused phases: {entry_launches} launches "
         f"(bench {bench_launches}, profile {profile_launches}, fused "
-        f"{fused_launches})")
+        f"{fused_launches}); mesh phase fused_sweep "
+        f"{mesh_launches['fused_sweep']}")
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
     for n, r in ((2048, t), (SERVE_USERS, t512)):
@@ -3168,7 +3505,8 @@ def main() -> int:
         "launches": (launches["fused_sweep"] + graph_launches["fused_sweep"]
                      + knn["launches"]["fused_sweep"]
                      + content_launches["fused_sweep"]
-                     + entry_launches["fused_sweep"]),
+                     + entry_launches["fused_sweep"]
+                     + mesh_launches["fused_sweep"]),
         "max_abs_err": max([e["max_abs_err"] for e in errs]
                            + [exact["fused_sweep"]]),
         "ms": t["ms"],
@@ -3227,6 +3565,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     try:
         sys.exit(main())
     finally:

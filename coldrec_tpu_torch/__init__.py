@@ -22,6 +22,9 @@ Layers (the main path, ``python -m coldrec_tpu_torch.main --model MF``):
                  PyTorch version.
   - ``runtime``  trainer contract, eval sweep, three-way test, checkpoints
                  (npz bus, train state), serving.
+  - ``parallel`` the process group (``torch.distributed``), the data x
+                 model mesh, the sharded lookup, SpMM and retrieval, and a
+                 dry run of them on N ranks.
 
 Every public entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; with no card the default raises instead of falling back.

@@ -2,9 +2,10 @@
 ``coldrec_tpu/config/base.py``; reference main.py:90-143 argparse defaults).
 
 The same flag names and defaults as the JAX package's CLI, plus ``--device``
-(default ``cuda``). ``--mesh``, which the port does not carry out yet, is
-refused where it takes effect (``models/warm_base.py``), naming the
-ROADMAP item that brings it.
+(default ``cuda``). ``--mesh DxM`` lays the ranks of a process group out as
+data x model (``parallel/mesh.py``); MF and LightGCN take it, the models
+whose JAX trainer never sets up a mesh ignore it, and the others refuse it
+(``models/warm_base.py``), naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ COMMON_DEFAULTS = dict(
     result_overwrite=False,
     # mid-training checkpoint/resume (empty = off)
     state_ckpt="",
-    # device mesh "DxM"; the port runs one device (ROADMAP Queue 1, item 7)
+    # device mesh "DxM" over the ranks of a process group (MF, LightGCN)
     mesh="",
     # retrieval sweep: auto / pallas = the hand-written retrieval kernel
     # (its plain version on the CPU), pallas_bf16 = its bf16 mode, xla =

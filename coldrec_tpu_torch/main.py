@@ -23,6 +23,16 @@ train their own tables, and the reconstruction models CCFCRec (its
 ``--pretrain`` tables from the bus), M2VAE, CGRC and FSGNN, and USIM, the
 RL refinement of the backbone's cold item rows (item cold start only): all
 26 models of the JAX package.
+
+Several processes: set ``COLDREC_COORDINATOR`` (host:port of rank 0),
+``COLDREC_NUM_PROCESSES`` and ``COLDREC_PROCESS_ID`` in each, as for the JAX
+CLI. ``run`` opens the process group before any device use
+(``parallel/distributed.py``: gloo on the CPU and where ranks share a card),
+each rank computes on ``cuda:(rank % cards)`` (or the CPU with ``--device
+cpu``), ``--mesh DxM`` lays the ranks out (MF and LightGCN; no ``--mesh``:
+data-parallel over every rank), and rank 0 alone writes the result file;
+the ``__main__`` entry leaves through a barrier and
+``destroy_process_group``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,9 @@ import torch
 
 from .config import make_args
 from .models import model_factory
+from .parallel.distributed import (
+    init_distributed, process_index, rank_device, shutdown_distributed,
+)
 from .runtime.trainer import Config
 from .utils.seeding import set_seed
 
@@ -55,7 +68,11 @@ def _args_to_serializable(ns):
 def run(args) -> dict:
     """Train and test ``args.runs`` times, print the aggregate and write the
     result file; returns the JSON payload. ``--debug_nans`` turns on
-    autograd's anomaly mode for the run, ``--profile DIR`` traces it."""
+    autograd's anomaly mode for the run, ``--profile DIR`` traces it. A
+    process group configured by the ``COLDREC_*`` variables opens first."""
+    device = getattr(args, "device", "cuda")
+    init_distributed(device=device)
+    args.device = str(rank_device(device))
     profile_dir = str(getattr(args, "profile", "") or "")
     with contextlib.ExitStack() as stack:
         if getattr(args, "debug_nans", False):
@@ -175,7 +192,8 @@ def _run(args) -> dict:
             "seconds_per_completed_epoch_std": std_time,
         },
     }
-    _write_result_file(args, payload, top_ns)
+    if process_index() == 0:  # rank-0 writer under a process group
+        _write_result_file(args, payload, top_ns)
     return payload
 
 
@@ -249,3 +267,4 @@ if __name__ == "__main__":
     args = make_args()
     print(args)
     run(args)
+    shutdown_distributed()

@@ -99,6 +99,9 @@ class ALDI(JaxCarried, nn.Module):
 
 
 class ALDITrainer(ColdStartModelBase):
+    # the JAX trainer never sets up a mesh: --mesh runs on one device
+    mesh_support = "one_device"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)

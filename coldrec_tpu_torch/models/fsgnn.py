@@ -244,6 +244,9 @@ class FSGNNTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded weights."""
 
+    # the JAX trainer never sets up a mesh: --mesh runs on one device
+    mesh_support = "one_device"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         a = self.args

@@ -3,8 +3,13 @@
 
 L rounds of normalized-adjacency propagation ``E_{k+1} = Â E_k`` over the
 (U+I)-node bipartite graph, final embedding = mean over layers 0..L
-(LightGCN.py:86-96), BPR + L2 on the propagated rows. The SpMM is the
-ELL + COO apply of ``ops/spmm.py`` with its symmetric backward.
+(LightGCN.py:86-96), BPR + L2 on the propagated rows, as the additive
+partial sums of ``ops/losses.bpr_l2_parts`` (summed over the data axis of
+a mesh before the loss). The SpMM is the ELL + COO apply of
+``ops/spmm.py`` with its symmetric backward. Under ``--mesh DxM`` with
+M > 1 the graph is a ``parallel.ops.MeshGraph``: layer 0 is assembled from
+the gathered tables, each rank propagates its block of node rows, and the
+batch's rows are looked up from those blocks by the exchange lookup.
 ``GraphTables`` holds the two embedding tables of LightGCN, SimGCL,
 XSimGCL and NCL.
 """
@@ -16,8 +21,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_from_parts, bpr_l2_parts
 from ..ops.spmm import spmm
+from ..parallel.ops import MeshGraph, gather_rows, sharded_lookup
 from .common import JaxCarried, xavier_uniform
 from .warm_base import WarmBackboneTrainer
 
@@ -92,12 +98,52 @@ class GraphTrainer(WarmBackboneTrainer):
 
 
 class LightGCNTrainer(GraphTrainer):
+    mesh_support = "sharded"
+
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        u, pos, neg, w = self.rows(batch, *self.forward_tables())
-        return bpr_loss(u, pos, neg, w) + l2_reg_loss(self.reg, u, pos, neg,
-                                                      weight=w)
+        if isinstance(self.graph, MeshGraph):
+            # one exchange for the three id sets (node ids)
+            n_users = self.data.user_num
+            ids = torch.cat([batch["user"].long(),
+                             batch["pos_item"].long() + n_users,
+                             batch["neg_item"].long() + n_users])
+            rows = sharded_lookup(self.mesh, self.propagate_block(), ids,
+                                  "exchange")
+            u, pos, neg = rows.chunk(3)
+            w = batch["weight"]
+        else:
+            u, pos, neg, w = self.rows(batch, *self.forward_tables())
+        parts = bpr_l2_parts(u, pos, neg, w)
+        return bpr_l2_from_parts(self.reduce_parts(parts), self.reg)
+
+    def propagate_block(self) -> torch.Tensor:
+        """This rank's node-row block of the layer mean, on the mesh graph:
+        layer 0 from the full tables (their gradients summed over the model
+        group, as each rank uses only its own block of them)."""
+        g, m = self.graph, self.model
+        if self.sharded >= {"user_emb", "item_emb"}:
+            # one gather for both tables: rank r's block holds its user
+            # rows, then its item rows
+            n_user_rows, d = m.user_emb.shape
+            both = gather_rows(self.mesh, torch.cat([m.user_emb, m.item_emb]),
+                               replicated=False).view(self.mesh.n_model, -1, d)
+            ego = torch.cat([both[:, :n_user_rows].reshape(-1, d),
+                             both[:, n_user_rows:].reshape(-1, d)])
+        else:
+            ego = torch.cat([self.full_table(name, replicated=False)
+                             for name in ("user_emb", "item_emb")])
+        x = g.block(ego)
+        acc = x
+        for _ in range(self.n_layers):
+            x = g(x)
+            acc = acc + x
+        return acc / (self.n_layers + 1)
 
     def forward_tables(self):
+        if isinstance(self.graph, MeshGraph):
+            full = self.graph.full(self.propagate_block())
+            n_users = self.data.user_num
+            return full[:n_users], full[n_users:]
         m = self.model
         return lightgcn_propagate(self.graph, m.user_emb, m.item_emb,
                                   self.n_layers)

@@ -189,6 +189,9 @@ class M2VAETrainer(ColdStartModelBase):
     """``init_params`` / ``init_state`` (the JAX trainer's ``params`` and
     ``net_state`` as numpy) replace the seeded weights and statistics."""
 
+    # the JAX trainer never sets up a mesh: --mesh runs on one device
+    mesh_support = "one_device"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)

@@ -2,9 +2,13 @@
 ``coldrec_tpu/models/mf.py``; reference: ColdRec model/MF.py).
 
 ``MF`` holds the two xavier-initialized embedding tables, their score
-function and the BPR + L2 loss of a batch; ``MFTrainer`` trains it with
-Adam in the shared warm-backbone loop and writes the best tables to the
-embedding bus (MF.py:44-46).
+function and the BPR + L2 loss of a batch, written as additive partial
+sums (``loss_parts``) and the loss made of them, so that a batch split over
+the data axis of a mesh sums its parts before the loss; ``MFTrainer``
+trains it with Adam in the shared warm-backbone loop and writes the best
+tables to the embedding bus (MF.py:44-46). Under ``--mesh DxM`` the tables
+whose height divides M are row-sharded and looked up through
+``parallel.ops.sharded_lookup`` (``WarmBackboneTrainer.lookup``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_from_parts, bpr_l2_parts
 from .common import xavier_uniform
 from .warm_base import WarmBackboneTrainer
 
@@ -60,20 +64,30 @@ class MF(nn.Module):
         """The eval-ready (user_emb, item_emb) tables."""
         return self.user_emb, self.item_emb
 
+    def loss_parts(self, batch: Dict[str, torch.Tensor],
+                   lookup=None) -> torch.Tensor:
+        """``bpr_l2_parts`` of a padded batch {user, pos_item, neg_item,
+        weight}; ``lookup(name, ids)`` gathers a table's rows (default: plain
+        indexing of this module's tables)."""
+        if lookup is None:
+            def lookup(name, ids):
+                return getattr(self, name)[ids]
+        return bpr_l2_parts(lookup("user_emb", batch["user"]),
+                            lookup("item_emb", batch["pos_item"]),
+                            lookup("item_emb", batch["neg_item"]),
+                            batch["weight"])
+
     def loss(self, batch: Dict[str, torch.Tensor], reg: float) -> torch.Tensor:
         """BPR + L2 of a padded batch {user, pos_item, neg_item, weight}."""
-        u = self.user_emb[batch["user"]]
-        pos = self.item_emb[batch["pos_item"]]
-        neg = self.item_emb[batch["neg_item"]]
-        w = batch["weight"]
-        return bpr_loss(u, pos, neg, w) + l2_reg_loss(reg, u, pos, neg,
-                                                      weight=w)
+        return bpr_l2_from_parts(self.loss_parts(batch), reg)
 
 
 class MFTrainer(WarmBackboneTrainer):
     """MF trained with BPR + L2 and Adam. ``init_params`` (numpy tables
     keyed ``user_emb`` / ``item_emb``, e.g. the JAX package's ``MF.params``)
     replaces the seeded initial tables."""
+
+    mesh_support = "sharded"
 
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
@@ -91,4 +105,8 @@ class MFTrainer(WarmBackboneTrainer):
         self.setup_optimizer()
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.model.loss(batch, self.reg)
+        parts = self.model.loss_parts(batch, self.lookup)
+        return bpr_l2_from_parts(self.reduce_parts(parts), self.reg)
+
+    def forward_tables(self):
+        return self.full_table("user_emb"), self.full_table("item_emb")

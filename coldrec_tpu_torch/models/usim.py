@@ -516,6 +516,9 @@ class USIMTrainer(ColdStartModelBase):
 
     _infer_blk = 4096  # cold items per greedy-rollout chunk
 
+    # the JAX trainer never sets up a mesh: --mesh runs on one device
+    mesh_support = "one_device"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         if config.args.cold_object != "item":
             raise ValueError("USIM only supports item cold-start")

@@ -59,6 +59,9 @@ class VBPRTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded tables and the bus tables."""
 
+    # the JAX trainer never sets up a mesh: --mesh runs on one device
+    mesh_support = "one_device"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.content = self.cold_side_content

@@ -39,6 +39,22 @@ default Adam over every parameter qualifies (``fused_ok``, JAX's
 ``_fused_ok``); a tail shorter than K, and a batch whose shapes differ
 from its group's, run per batch.
 
+``--mesh DxM`` and process groups (``_setup_mesh``, the counterpart of the
+JAX package's ``_setup_mesh`` / ``build_graph`` / ``_place_batch`` /
+``_local_tables``): one rank per mesh position (``parallel/mesh.py``). A
+table whose height is ``user_num`` or ``item_num`` and divides M keeps only
+this rank's row block (``sharded``); the batch splits into contiguous
+blocks over the data axis; the loss's additive parts are summed over the
+data group (``reduce_parts``) and, after the backward, every gradient too,
+so each rank's Adam steps its own rows with the global batch's gradient.
+The eval tables are gathered whole on every rank. A process group with no
+``--mesh`` is data-parallel over every rank, as in the JAX package. Only
+models with ``mesh_support = "sharded"`` (MF, LightGCN) take a mesh; those
+whose JAX trainer never sets one up (``"one_device"``) ignore it; every
+other model refuses it. Under a group, rank 0 alone writes the bus and the
+train state; sharded tables and their Adam moments are gathered before the
+write and sharded again on resume.
+
 ``--debug_nans`` (JAX's ``jax_debug_nans``; ``main.run`` turns on autograd's
 anomaly mode, which checks every backward for NaN): each step's loss must
 be finite and so must the eval tables at every refresh, else
@@ -55,6 +71,15 @@ import torch
 
 from ..data.sampler import pairwise_batches
 from ..ops.spmm import make_sym_spmm
+from ..parallel.distributed import (
+    all_reduce, barrier, host_block, is_multiprocess, localize,
+    process_count, process_index,
+)
+from ..parallel.mesh import make_mesh, parse_mesh, shards_rows
+from ..parallel.ops import (
+    AllReduceIdentity, CopyToGroup, MeshGraph, gather_rows, shard_rows,
+    sharded_lookup,
+)
 from ..runtime.checkpoints import (
     load_train_state, save_embeddings, save_train_state,
 )
@@ -97,6 +122,14 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     # sets this False and keeps the per-batch loop, as there
     fused_ok = True
     current_epoch = None  # the epoch being trained, for --debug_nans
+    # "sharded": the loss as partial sums and the tables through
+    # parallel.ops, so --mesh and process groups run (MF, LightGCN);
+    # "one_device": --mesh ignored, as the JAX trainer never sets up its
+    # mesh; "refuse": a mesh or group raises (ROADMAP Queue 1, item 7b)
+    mesh_support = "refuse"
+    mesh = None
+    sharded = frozenset()  # names of the row-sharded parameters
+    _mesh_done = False
 
     def setup_optimizer(self, param_groups=None, optimizer=None):
         """Adam over ``param_groups`` (torch's parameter groups, each with
@@ -104,10 +137,8 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         as optax's ``add_decayed_weights`` before Adam) or over every
         parameter of the model that takes a gradient; or ``optimizer``
         (e.g. an :class:`OptimizerGroups`)."""
-        if str(getattr(self.args, "mesh", "") or ""):
-            raise NotImplementedError(
-                "--mesh: the port trains on one device; mesh training comes "
-                "with ROADMAP.md Queue 1, item 7")
+        if self._setup_mesh() is not None:
+            self._shard_tables()
         self._fused_ok = (self.fused_ok and param_groups is None
                           and optimizer is None)
         if optimizer is None:
@@ -118,6 +149,85 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         self.refresh_tables()
         self.save()
         self.epoch_stats: List[Dict] = []
+
+    # ------------------------------------------------------------- mesh
+    def _setup_mesh(self):
+        """The mesh of ``--mesh DxM`` (a process group with none: D = every
+        rank, M = 1), or None for the single-device path; built once (the
+        graph backbones need it before their tables exist)."""
+        if self._mesh_done:
+            return self.mesh
+        self._mesh_done = True
+        spec = str(getattr(self.args, "mesh", "") or "")
+        multi = is_multiprocess()
+        if (not spec and not multi) or self.mesh_support == "one_device":
+            return None
+        n_data, n_model = parse_mesh(spec) if spec else (process_count(), 1)
+        if n_data * n_model == 1 and not multi:
+            return None
+        if self.mesh_support != "sharded":
+            raise NotImplementedError(
+                f"{self.model_name} on a mesh or a process group (--mesh "
+                f"{spec or 'unset'}, {process_count()} process(es)): the port "
+                "brings the data and model axes to MF and LightGCN only; the "
+                "other models wait for ROADMAP.md Queue 1, item 7b")
+        self.mesh = make_mesh(n_data, n_model)
+        return self.mesh
+
+    def _shard_tables(self):
+        """Keep this rank's row block of every table the rule shards."""
+        rows = {self.data.user_num, self.data.item_num}
+        names = []
+        for name, p in self.model.named_parameters():
+            if shards_rows(tuple(p.shape), rows, self.mesh.n_model):
+                p.data = shard_rows(self.mesh, p.data).clone()
+                names.append(name)
+        self.sharded = frozenset(names)
+
+    def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the model's table ``name`` (the exchange or
+        gather lookup where it is row-sharded)."""
+        table = getattr(self.model, name)
+        if name in self.sharded:
+            return sharded_lookup(self.mesh, table, ids)
+        return table[ids]
+
+    def full_table(self, name: str, replicated: bool = True) -> torch.Tensor:
+        """The whole table ``name`` on this rank. ``replicated=False``: the
+        caller uses only its own part of it, so its gradient is summed over
+        the model group."""
+        table = getattr(self.model, name)
+        if name in self.sharded:
+            return gather_rows(self.mesh, table, replicated)
+        if not replicated and self.mesh is not None \
+                and self.mesh.model_group is not None:
+            return CopyToGroup.apply(table, self.mesh.model_group)
+        return table
+
+    def reduce_parts(self, parts: torch.Tensor) -> torch.Tensor:
+        """The loss's additive parts summed over the data group (backward:
+        the identity, as every rank goes on to the same loss)."""
+        if self.mesh is None or self.mesh.data_group is None:
+            return parts
+        return AllReduceIdentity.apply(parts, self.mesh.data_group)
+
+    def _place_batch(self, batch: Dict[str, np.ndarray]):
+        """This rank's contiguous block of the host batch over the data
+        axis (``P(AXIS_DATA)``)."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return batch
+        return {k: host_block(v, self.mesh.n_data, self.mesh.data_index)
+                for k, v in batch.items()}
+
+    def _reduce_grads(self):
+        """Every gradient summed over the data group, in one all-reduce."""
+        if self.mesh is None or self.mesh.data_group is None:
+            return
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]),
+                          self.mesh.data_group)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
     def refresh_tables(self):
         """Recompute the eval tables from the current weights: new tensors,
@@ -152,8 +262,14 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     def build_graph(self):
         """The normalized-adjacency SpMM operator of the graph backbones:
         the ELL + COO layout with the symmetric custom backward, on the
-        trainer's device (the single-device path of the JAX package's
-        ``build_graph``; ``--mesh`` is refused by ``setup_optimizer``)."""
+        trainer's device; under a mesh with a model axis > 1 the
+        node-row-sharded :class:`MeshGraph` (the JAX package's
+        ``build_graph``)."""
+        mesh = self._setup_mesh()
+        if mesh is not None and mesh.n_model > 1:
+            return MeshGraph(mesh, self.data.norm_adj,
+                             self.data.user_num + self.data.item_num,
+                             device=self.device)
         return make_sym_spmm(self.data.norm_adj, device=self.device)
 
     # ------------------------------------------------------------- contract
@@ -178,7 +294,9 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     # ----------------------------------------------------------------- step
     def upload(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The host batch on the trainer's device (through pinned memory and
-        an asynchronous copy on the card)."""
+        an asynchronous copy on the card); under a data axis, this rank's
+        block of it."""
+        batch = self._place_batch(batch)
         if self.device.type != "cuda":
             return {k: torch.from_numpy(v) for k, v in batch.items()}
         return {k: torch.from_numpy(v).pin_memory().to(
@@ -191,12 +309,16 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         loss = self.loss(batch, **kw)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce_grads()
         self.optimizer.step()
         return loss.detach()
 
     def _use_fused(self) -> int:
         """K of ``--fused_steps`` where it applies (K > 1 and ``fused_ok``
-        with the default optimizer), else 0: the per-batch loop."""
+        with the default optimizer, on one device and one process), else 0:
+        the per-batch loop."""
+        if self.mesh is not None or is_multiprocess():
+            return 0
         k = int(getattr(self.args, "fused_steps", 0) or 0)
         return k if k > 1 and getattr(self, "_fused_ok", False) else 0
 
@@ -298,21 +420,64 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         return str(getattr(self.args, "state_ckpt", "") or "")
 
     def _save_train_state(self, epoch: int):
+        """Every rank gathers its sharded tables and their Adam moments;
+        rank 0 writes the checkpoint, which every rank then waits for."""
         cuda = self.device.type == "cuda"
-        save_train_state(self._ckpt_path(), {
-            "epoch": epoch,
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "host_rng_state": self.host_rng.bit_generator.state,
-            "torch_rng_state": torch.get_rng_state(),
-            "cuda_rng_state": (torch.cuda.get_rng_state(self.device)
-                               if cuda else None),
-            "generator_state": self.generator.get_state(),
-            "best_user_emb": self.best_user_emb,
-            "best_item_emb": self.best_item_emb,
-            "best_performance": self.best_performance,
-            "early_stop_patience": getattr(self, "early_stop_patience", None),
-        })
+        model, optimizer = self._full_states()
+        if process_index() == 0:
+            save_train_state(self._ckpt_path(), {
+                "epoch": epoch,
+                "model": model,
+                "optimizer": optimizer,
+                "host_rng_state": self.host_rng.bit_generator.state,
+                "torch_rng_state": torch.get_rng_state(),
+                "cuda_rng_state": (torch.cuda.get_rng_state(self.device)
+                                   if cuda else None),
+                "generator_state": self.generator.get_state(),
+                "best_user_emb": self.best_user_emb,
+                "best_item_emb": self.best_item_emb,
+                "best_performance": self.best_performance,
+                "early_stop_patience": getattr(self, "early_stop_patience",
+                                               None),
+            })
+        barrier()
+
+    def _sharded_slots(self):
+        """(state dict name, optimizer state index) of each sharded
+        parameter."""
+        index = {id(p): i for i, p in enumerate(
+            p for g in self.optimizer.param_groups for p in g["params"])}
+        params = dict(self.model.named_parameters())
+        return [(name, index[id(params[name])])
+                for name in sorted(self.sharded)]
+
+    def _full_states(self):
+        """(model, optimizer) state dicts with every sharded table and its
+        Adam moments gathered whole (the live states left as they are)."""
+        model = self.model.state_dict()
+        optimizer = self.optimizer.state_dict()
+        return self._map_sharded(
+            model, optimizer, lambda t: localize(t, self.mesh.model_group))
+
+    def _shard_states(self, model: dict, optimizer: dict):
+        """The inverse of ``_full_states``: this rank's blocks of a
+        checkpoint's whole tables and moments."""
+        return self._map_sharded(model, optimizer,
+                                 lambda t: shard_rows(self.mesh, t))
+
+    def _map_sharded(self, model: dict, optimizer: dict, fn):
+        """``fn`` applied to each sharded table of ``model`` and to its
+        optimizer state tensors of the same height; new dicts returned."""
+        if not self.sharded:
+            return model, optimizer
+        model, state = dict(model), dict(optimizer["state"])
+        for name, i in self._sharded_slots():
+            rows = model[name].shape[0]
+            model[name] = fn(model[name])
+            state[i] = {k: fn(v) if torch.is_tensor(v) and v.dim() == 2
+                        and v.shape[0] == rows else v
+                        for k, v in state.get(i, {}).items()}
+        return model, {**optimizer, "state": state}
 
     def _try_resume(self) -> int:
         """Restore mid-training state; returns the epoch to resume from."""
@@ -322,8 +487,10 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         state = load_train_state(path)
         if state is None:
             return 0
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        model, optimizer = self._shard_states(state["model"],
+                                              state["optimizer"])
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(optimizer)
         self.host_rng.bit_generator.state = state["host_rng_state"]
         torch.set_rng_state(state["torch_rng_state"])
         if self.device.type == "cuda" and state["cuda_rng_state"] is not None:
@@ -368,7 +535,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         self.epochs_ran = (epoch + 1) if self.max_epoch > 0 else 0
         self.timer(start=False)
         self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
-        if self.args.save_emb:
+        if self.args.save_emb and process_index() == 0:
             save_embeddings(
                 self.args.emb_dir,
                 self.dataset_name,
@@ -378,6 +545,8 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
                  **self.extra_saved_tensors()},
                 fmt=getattr(self.args, "save_emb_format", "npz"),
             )
+        if self.args.save_emb:
+            barrier()  # the bus is whole before any rank goes on
 
     def save(self):
         # the eval tables are fresh tensors (refresh_tables), never updated

@@ -55,6 +55,39 @@ def l2_reg_loss(
     return total * reg
 
 
+def bpr_l2_parts(
+    user_emb: torch.Tensor,
+    pos_item_emb: torch.Tensor,
+    neg_item_emb: torch.Tensor,
+    weight: torch.Tensor,
+) -> torch.Tensor:
+    """The additive sums of a padded batch's BPR + L2 loss, stacked:
+    [sum w * bpr, sum w, sum (w u)^2, sum (w pos)^2, sum (w neg)^2].
+
+    Summed over the blocks of a batch split across ranks they are the whole
+    batch's sums, which :func:`bpr_l2_from_parts` turns into the loss; the
+    L2 term is a square root of a sum, so the loss itself does not add up
+    over blocks."""
+    pos_score = (user_emb * pos_item_emb).sum(dim=1)
+    neg_score = (user_emb * neg_item_emb).sum(dim=1)
+    bpr = -torch.log(_BPR_EPS + torch.sigmoid(pos_score - neg_score))
+    w = weight.reshape(-1, 1)
+    return torch.stack([(bpr * weight).sum(), weight.sum()] + [
+        ((e * w) * (e * w)).sum()
+        for e in (user_emb, pos_item_emb, neg_item_emb)])
+
+
+def bpr_l2_from_parts(parts: torch.Tensor, reg: float) -> torch.Tensor:
+    """``bpr_loss + l2_reg_loss(reg, u, pos, neg)`` (both weighted) from
+    :func:`bpr_l2_parts`, in the same operations and order, so a whole
+    batch's parts give the same value."""
+    denom = parts[1].clamp_min(1.0)
+    total = 0.0
+    for sq in parts[2:]:
+        total = total + sq.sqrt() / denom
+    return parts[0] / denom + total * reg
+
+
 def mse_loss(
     pred: torch.Tensor, target: torch.Tensor,
     weight: Optional[torch.Tensor] = None,

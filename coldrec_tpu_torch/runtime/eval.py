@@ -15,8 +15,10 @@ promises no order among ties, so every top-k here goes through
 :func:`stable_topk`, which selects and orders by (-value, index).
 
 The kernel path (:meth:`EvalSweep.run_kernel`) sends the same sweep through
-the hand-written retrieval kernel (``ops/cuda/retrieval.py``). The
-multi-process partition of the JAX package's sweep waits for a later slice.
+the hand-written retrieval kernel (``ops/cuda/retrieval.py``). Under a
+process group the plain sweep's user chunks are split round robin over the
+processes and their lists merged (the JAX package's ``_run_multiprocess``);
+the kernel path sweeps every user on every rank, as ``run_pallas`` does.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.distributed import (
+    allgather_host, is_multiprocess, partition_chunks,
+)
 
 MASK_VALUE = -10e8  # exact reference constant (BaseRecommender.py:177-180)
 
@@ -192,8 +197,12 @@ class EvalSweep:
     ) -> np.ndarray:
         """Return (n_users, max_n) ranked recommended item ids (mapped),
         scoring each chunk with ``score_fn(user_ids) -> (bs, I)`` on the
-        sweep's device."""
+        sweep's device. Under a process group each process scores its
+        round-robin share of the chunks and one all-gather merges the
+        lists."""
         st = self._prepare(split_name, data_type)
+        if is_multiprocess():
+            return self._run_multiprocess(st, score_fn)
         outs = []
         for c in range(st["user_chunks"].shape[0]):
             scores = score_fn(st["user_chunks"][c])
@@ -203,6 +212,24 @@ class EvalSweep:
             outs.append(idx)
         rec = torch.cat(outs, dim=0)[: st["n_users"]]
         return rec.cpu().numpy()
+
+    def _run_multiprocess(self, st, score_fn) -> np.ndarray:
+        n_chunks = st["user_chunks"].shape[0]
+        mine, pc, _ = partition_chunks(n_chunks)
+        slots = -(-n_chunks // pc)  # equal per-process slot count
+        bs = st["user_chunks"].shape[1]
+        local = np.zeros((slots, bs, self.max_n), np.int64)
+        for slot, c in enumerate(mine):
+            scores = score_fn(st["user_chunks"][c])
+            _, idx = masked_topk(
+                scores, self._rated_chunk(st, c), st["bias"], self.max_n
+            )
+            local[slot] = idx.cpu().numpy()
+        gathered = allgather_host(local)  # (pc, slots, bs, max_n)
+        rec = np.concatenate(
+            [gathered[c % pc, c // pc] for c in range(n_chunks)], axis=0
+        )
+        return rec[: st["n_users"]]
 
     def kernel_supported(self, split_name: str, data_type: str) -> bool:
         """The kernel emits SLOTS*LANES candidates per user; the

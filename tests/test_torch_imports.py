@@ -510,3 +510,32 @@ def test_chip_smoke_content_phases_rehearse_on_cpu_without_jax(tmp_path):
                  "MetaEmbedding: 3 steps cpu vs cpu",
                  "id-equal to the plain path all"):
         assert line in proc.stdout, line
+
+
+PARALLEL_MODULES = ("coldrec_tpu_torch.parallel.distributed",
+                    "coldrec_tpu_torch.parallel.mesh",
+                    "coldrec_tpu_torch.parallel.ops",
+                    "coldrec_tpu_torch.parallel.dryrun")
+
+
+def test_parallel_modules_import_without_jax(tmp_path):
+    """The process group, mesh, sharded ops and dry run are among the files
+    checked above and import in a process where jax and coldrec_tpu are
+    blocked; there, with no ``COLDREC_*`` variable, no group opens and the
+    dry run's phases run on one rank."""
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in PARALLEL_MODULES:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = "import importlib, os\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in PARALLEL_MODULES) + (
+        "from coldrec_tpu_torch.parallel import distributed, dryrun\n"
+        "for v in ('COLDREC_COORDINATOR', 'COLDREC_NUM_PROCESSES',\n"
+        "          'COLDREC_PROCESS_ID'):\n"
+        "    os.environ.pop(v, None)\n"
+        "assert distributed.init_distributed(device='cpu') is False\n"
+        "res = dryrun.phases('', 'cpu')\n"
+        "assert res['serve/ids'].shape == (24, 10), res.keys()\n"
+        "print('PARALLEL IMPORTS OK')\n")
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PARALLEL IMPORTS OK" in proc.stdout

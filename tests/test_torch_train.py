@@ -249,7 +249,8 @@ def test_plain_and_kernel_backends_agree(datasets):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (dict(mesh="2x1"), NotImplementedError, "Queue 1, item 7"),
+    # MF takes a mesh; on one rank a 2x1 mesh has too few processes
+    (dict(mesh="2x1"), ValueError, "needs 2 processes, have 1"),
     (dict(fused_steps=4), None, None),  # accepted: K steps a group
     (dict(eval_backend="bf16"), ValueError, "pallas_bf16"),
     (dict(eval_backend="tpu"), ValueError, "eval_backend"),
@@ -261,6 +262,27 @@ def test_refused_flags(datasets, overrides, error, match):
         return
     with pytest.raises(error, match=match):
         _port(td, epochs=1, **overrides)
+
+
+@pytest.mark.parametrize("model,mesh,error", [
+    ("NGCF", "2x1", NotImplementedError),  # not on the data axis yet
+    ("KNN", "1x2", NotImplementedError),
+    ("MTPR", "2x1", None),  # JAX's MTPR never sets up a mesh: one device
+    ("LightGCN", "1x1", None),  # a 1x1 mesh is the single-device path
+])
+def test_mesh_by_model(datasets, model, mesh, error):
+    """``--mesh`` for the models off the data and model axes: refused with
+    the ROADMAP item that brings them, or ignored as the JAX package's
+    trainer ignores it."""
+    _, td = datasets
+    args = default_args(**{**COMMON, "device": "cpu", "epochs": 1,
+                           "model": model, "mesh": mesh, "layers": 1})
+    if error is not None:
+        with pytest.raises(error, match="Queue 1, item 7b"):
+            model_factory(Config(args, td))
+        return
+    trainer = model_factory(Config(args, td))
+    assert trainer.mesh is None and not trainer.sharded
 
 
 @pytest.mark.parametrize("model,cold_object,match", [
