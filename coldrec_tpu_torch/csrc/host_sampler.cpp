@@ -1,6 +1,7 @@
 // Host C++ of the port, bound with ctypes (coldrec_tpu_torch/native.py):
-// the negative sampler (uniform draws rejected against the training CSR)
-// and FSGNN's forward-push personalized PageRank.
+// the negative sampler (uniform draws rejected against the training CSR),
+// the permutation and the interaction CSV parser, and FSGNN's forward-push
+// personalized PageRank.
 //
 // The sampler is a copy of the RNG, `contains` and `sample_negatives` of the
 // JAX package's native/coldrec_native.cpp: the same seed gives the same
@@ -9,6 +10,8 @@
 // flags.
 #include <algorithm>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <vector>
 
@@ -90,6 +93,93 @@ void sample_negatives(const int64_t *indptr, const int64_t *items_sorted,
     } while (contains(items_sorted, lo, hi, cand));
     out[i] = cand;
   }
+}
+
+// ------------------------------------------------------------ CSV parser
+// Copies of `permutation`, `count_csv_rows` and `parse_interactions` of the
+// JAX package's native/coldrec_native.cpp: the same seed gives the same
+// permutation, and the parser's arrays are the JAX loader's for every file
+// (digits only: a '-' or '.' in an id, a CR or any other byte is skipped;
+// a line with fewer than two fields adds no row).
+
+// Fisher-Yates permutation of [0, n)
+void permutation(int64_t n, uint64_t seed, int64_t *out) {
+  for (int64_t i = 0; i < n; i++) out[i] = i;
+  Rng rng;
+  rng_seed(&rng, seed);
+  for (int64_t i = n - 1; i > 0; i--) {
+    int64_t j = rng_below(&rng, i + 1);
+    int64_t t = out[i];
+    out[i] = out[j];
+    out[j] = t;
+  }
+}
+
+// Count data lines (excluding the header) of a csv file; returns -1 on error.
+int64_t count_csv_rows(const char *path) {
+  FILE *f = fopen(path, "rb");
+  if (!f) return -1;
+  static const size_t BUF = 1 << 20;
+  char *buf = (char *)malloc(BUF);
+  int64_t lines = 0;
+  size_t got;
+  char last = '\n';
+  while ((got = fread(buf, 1, BUF, f)) > 0) {
+    for (size_t i = 0; i < got; i++)
+      if (buf[i] == '\n') lines++;
+    last = buf[got - 1];
+  }
+  if (last != '\n') lines++;  // unterminated final line
+  free(buf);
+  fclose(f);
+  return lines > 0 ? lines - 1 : 0;  // minus header
+}
+
+// Parse "user,item[,...]" csv (header skipped) into out (n rows x 2 int64).
+// Returns rows parsed, or -1 on IO error.
+int64_t parse_interactions(const char *path, int64_t *out, int64_t max_rows) {
+  FILE *f = fopen(path, "rb");
+  if (!f) return -1;
+  static const size_t BUF = 1 << 20;
+  char *buf = (char *)malloc(BUF + 1);
+  size_t got;
+  int64_t row = 0;
+  int col = 0;       // 0 = user, 1 = item, 2+ = ignored
+  int64_t val = 0;
+  int in_num = 0;
+  int header = 1;  // skip first line
+  while ((got = fread(buf, 1, BUF, f)) > 0) {
+    for (size_t i = 0; i < got; i++) {
+      char c = buf[i];
+      if (header) {
+        if (c == '\n') header = 0;
+        continue;
+      }
+      if (c >= '0' && c <= '9') {
+        val = val * 10 + (c - '0');
+        in_num = 1;
+      } else if (c == ',') {
+        if (in_num && col < 2 && row < max_rows) out[row * 2 + col] = val;
+        col++;
+        val = 0;
+        in_num = 0;
+      } else if (c == '\n') {
+        if (in_num && col < 2 && row < max_rows) out[row * 2 + col] = val;
+        if (col >= 1 && row < max_rows) row++;
+        col = 0;
+        val = 0;
+        in_num = 0;
+      }
+    }
+  }
+  // unterminated final line
+  if (in_num && col < 2 && row < max_rows) {
+    out[row * 2 + col] = val;
+    if (col >= 1) row++;
+  }
+  free(buf);
+  fclose(f);
+  return row;
 }
 
 }  // extern "C"

@@ -6,8 +6,12 @@ Here interactions are represented as an (N, 2) int64 numpy array of raw
 ``(user, item)`` ids; the implicit rating of 1.0 is a convention of the whole
 pipeline, never stored.
 
-Parsing is ``np.loadtxt`` only: the JAX package's native C++ parser gives the
-same arrays faster and is left for a later slice of the port.
+Parsing is the host library's C++ parser (``native.parse_interactions_native``,
+a copy of the JAX package's), as the JAX loader parses wherever its library
+loads. Where the parser and ``np.loadtxt`` read a file differently (a ``-``
+or ``.`` in an id, a CR before the newline, blank lines) the arrays follow
+the parser. There is no ``np.loadtxt`` fallback: the host library is built
+from source at first use, and a failed build raises.
 """
 from __future__ import annotations
 
@@ -20,10 +24,9 @@ import numpy as np
 
 def load_interaction_csv(path: str) -> np.ndarray:
     """Load a ``user,item[,...]`` CSV (header skipped) -> (N, 2) int64 array."""
-    out = np.loadtxt(
-        path, delimiter=",", skiprows=1, usecols=(0, 1),
-        dtype=np.int64, ndmin=2,
-    )
+    from .. import native
+
+    out = native.parse_interactions_native(path)
     if out.size == 0:
         return np.zeros((0, 2), dtype=np.int64)
     return out

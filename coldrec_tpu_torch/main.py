@@ -65,11 +65,15 @@ def _args_to_serializable(ns):
     return out
 
 
-def run(args) -> dict:
+def run(args, on_model=None, data=None, epoch_steps=0) -> dict:
     """Train and test ``args.runs`` times, print the aggregate and write the
     result file; returns the JSON payload. ``--debug_nans`` turns on
     autograd's anomaly mode for the run, ``--profile DIR`` traces it. A
-    process group configured by the ``COLDREC_*`` variables opens first."""
+    process group configured by the ``COLDREC_*`` variables opens first.
+    ``on_model``, if given, is called with each round's trainer once it
+    has run. ``data``, if given, is the ``ColdStartDataset`` of the split
+    the flags name, already read; ``epoch_steps`` > 0 cuts every epoch to
+    its first that many batches (``Config``)."""
     device = getattr(args, "device", "cuda")
     init_distributed(device=device)
     args.device = str(rank_device(device))
@@ -80,7 +84,7 @@ def run(args) -> dict:
         if profile_dir:
             stack.enter_context(profiled(
                 profile_dir, torch.device(getattr(args, "device", "cuda"))))
-        return _run(args)
+        return _run(args, on_model, data, epoch_steps)
 
 
 @contextlib.contextmanager
@@ -111,8 +115,8 @@ def profiled(out_dir: str, device: torch.device):
         print(f"Profiler trace written to: {out_dir}")
 
 
-def _run(args) -> dict:
-    config = Config(args)
+def _run(args, on_model=None, data=None, epoch_steps=0) -> dict:
+    config = Config(args, data, epoch_steps)
     top_ns = [int(x) for x in str(args.topN).split(",")]
     settings = ["all", "cold", "warm"]
     metrics = ["hit", "precision", "recall", "ndcg"]
@@ -130,6 +134,8 @@ def _run(args) -> dict:
         model = model_factory(config)
         print(f"Registered model: {args.model}.")
         model.run()
+        if on_model is not None:
+            on_model(model)
 
         for i in range(len(top_ns)):
             for setting, res in [

@@ -202,6 +202,7 @@ class CGRCTrainer(ColdStartModelBase):
     seeded weights."""
 
     fused_ok = False  # the JAX package's CGRC wires its own step
+    mesh_item = "7c"  # its user table row-sharded
 
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)

@@ -145,7 +145,17 @@ class MaskedBatchNorm1d(nn.Module):
     as the reference's unpadded one: mean and (biased) variance over the
     real rows, the running variance updated with the unbiased estimate at
     n = sum(weight). ``nn.BatchNorm1d`` takes no weight vector. Running
-    statistics are buffers, updated in training mode on every call."""
+    statistics are buffers, updated in training mode on every call.
+
+    ``group`` (set by the trainer under a data axis): the data group whose
+    ranks each hold a block of the global batch. In training the weighted
+    sums (n and sum(w x) in one all-reduce, then sum(w (x - mean)^2)) are
+    summed over it before normalising, so the mean, the variance and the
+    running statistics are the global batch's and equal on every rank; the
+    backward of each sum is the sum of the gradients over the group
+    (:class:`parallel.ops.AllReduceSum`)."""
+
+    group = None
 
     def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -156,20 +166,32 @@ class MaskedBatchNorm1d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over ``group`` (``t`` itself with no group)."""
+        if self.group is None:
+            return t
+        from ..parallel.ops import AllReduceSum
+
+        return AllReduceSum.apply(t, self.group)
+
     def forward(self, x: torch.Tensor,
                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
-            if weight is not None:
-                w = weight[:, None]
-                n = weight.sum().clamp_min(1.0)
-                mean = (x * w).sum(dim=0) / n
-                var = ((x - mean) ** 2 * w).sum(dim=0) / n
-                unbiased = var * n / (n - 1.0).clamp_min(1.0)
-            else:
+            if weight is None and self.group is None:
                 n = x.shape[0]
                 mean = x.mean(dim=0)
                 var = x.var(dim=0, unbiased=False)
                 unbiased = var * n / max(n - 1, 1)
+            else:
+                if weight is None:
+                    weight = x.new_ones(x.shape[0])
+                w = weight[:, None]
+                sums = self._sum(
+                    torch.cat([weight.sum()[None], (x * w).sum(dim=0)]))
+                n = sums[0].clamp_min(1.0)
+                mean = sums[1:] / n
+                var = self._sum(((x - mean) ** 2 * w).sum(dim=0)) / n
+                unbiased = var * n / (n - 1.0).clamp_min(1.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(

@@ -16,6 +16,15 @@ weights, and each tower's running statistics are updated twice a step (the
 pos pass, then the neg pass). Eval re-encodes ALL users+items through the
 towers in eval mode (running statistics). Linear init: truncated normal std
 0.01, zero bias (DropoutNet.py:138-152).
+
+On ``--mesh DxM`` (the JAX package runs the same loss as one program over
+the global batch): the bus tables are row-sharded over the model axis and
+read through the trainer's lookups; the loss is the parts (sum of se w,
+sum of w) summed over the data group; the BatchNorm statistics are the
+global batch's (``MaskedBatchNorm1d.group``); and every rank draws the two
+permutations of the global batch from its generator, in the same state on
+every rank, and keeps its own block of the masks. A ``1xM`` run is thus
+bit-equal to one rank in deterministic mode.
 """
 from __future__ import annotations
 
@@ -100,6 +109,7 @@ class DropoutNetTrainer(ColdStartModelBase):
     ``net_state`` as numpy) replace the seeded towers and the bus tables."""
 
     fused_ok = False  # BatchNorm state: stateful in the JAX package
+    mesh_support = "sharded"
 
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
@@ -122,8 +132,9 @@ class DropoutNetTrainer(ColdStartModelBase):
         self.setup_optimizer()
 
     def draw_masks(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The pos and neg passes' row masks: 0 on ``int(n * n_dropout)``
-        rows drawn without replacement, 1 elsewhere."""
+        """The pos and neg passes' row masks over a batch of ``n`` rows: 0
+        on ``int(n * n_dropout)`` rows drawn without replacement, 1
+        elsewhere."""
         n_zero = int(n * self.n_dropout)
         masks = []
         for _ in range(2):
@@ -134,9 +145,8 @@ class DropoutNetTrainer(ColdStartModelBase):
             masks.append(mask)
         return masks[0], masks[1]
 
-    def _pair_scores(self, uid, iid, mask, weight):
+    def _pair_scores(self, ue, ie, uid, iid, mask, weight):
         m = self.model
-        ue, ie = m.user_emb[uid], m.item_emb[iid]
         if self.args.cold_object == "item":
             u_in = ue
             v_in = torch.cat([ie * mask[:, None], self.content[iid]], dim=1)
@@ -150,23 +160,29 @@ class DropoutNetTrainer(ColdStartModelBase):
     def loss(self, batch: Dict[str, torch.Tensor],
              masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
              ) -> torch.Tensor:
+        """The MSE of the towers' pair scores against the tables'. ``masks``
+        (else drawn): the global batch's two row masks; this rank keeps its
+        block of each."""
         if masks is None:
-            masks = self.draw_masks(batch["user"].shape[0])
-        ue, ie = self.model.user_emb, self.model.item_emb
-        u = ue[batch["user"]]
-        pos_target = (u * ie[batch["pos_item"]]).sum(dim=1)
-        neg_target = (u * ie[batch["neg_item"]]).sum(dim=1)
+            masks = self.draw_masks(batch["user"].shape[0] * self.n_data)
+        masks = tuple(self.data_block(m) for m in masks)
+        u = self.lookup("user_emb", batch["user"])
+        pos = self.lookup("item_emb", batch["pos_item"])
+        neg = self.lookup("item_emb", batch["neg_item"])
+        pos_target = (u * pos).sum(dim=1)
+        neg_target = (u * neg).sum(dim=1)
         w = batch["weight"]
-        pos_pred = self._pair_scores(batch["user"], batch["pos_item"],
+        pos_pred = self._pair_scores(u, pos, batch["user"], batch["pos_item"],
                                      masks[0], w)
-        neg_pred = self._pair_scores(batch["user"], batch["neg_item"],
+        neg_pred = self._pair_scores(u, neg, batch["user"], batch["neg_item"],
                                      masks[1], w)
         se = (pos_pred - pos_target) ** 2 * w + (neg_pred - neg_target) ** 2 * w
-        return se.sum() / (2 * w.sum()).clamp_min(1.0)
+        parts = self.reduce_parts(torch.stack([se.sum(), w.sum()]))
+        return parts[0] / (2 * parts[1]).clamp_min(1.0)
 
     def forward_tables(self):
         m = self.model
-        ue, ie = m.user_emb, m.item_emb
+        ue, ie = self.full_table("user_emb"), self.full_table("item_emb")
         if self.args.cold_object == "item":
             u_in = ue
             v_in = torch.cat([ie, self.content[: ie.shape[0]]], dim=1)

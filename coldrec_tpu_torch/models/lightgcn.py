@@ -74,6 +74,8 @@ class GraphTrainer(WarmBackboneTrainer):
     ``init_module``; ``init_params`` = the JAX trainer's ``params``)."""
 
     module = GraphTables
+    # the global batch's noise and InfoNCE (SimGCL, XSimGCL, NGCF, NCL)
+    mesh_item = "7c"
 
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)

@@ -47,13 +47,17 @@ this rank's row block (``sharded``); the batch splits into contiguous
 blocks over the data axis; the loss's additive parts are summed over the
 data group (``reduce_parts``) and, after the backward, every gradient too,
 so each rank's Adam steps its own rows with the global batch's gradient.
-The eval tables are gathered whole on every rank. A process group with no
-``--mesh`` is data-parallel over every rank, as in the JAX package. Only
-models with ``mesh_support = "sharded"`` (MF, LightGCN) take a mesh; those
-whose JAX trainer never sets one up (``"one_device"``) ignore it; every
-other model refuses it. Under a group, rank 0 alone writes the bus and the
-train state; sharded tables and their Adam moments are gathered before the
-write and sharded again on resume.
+Every ``MaskedBatchNorm1d`` of the model takes the data group, so its
+statistics are the global batch's (``_sync_batchnorm``), and a draw over
+the batch is made for the global batch on every rank, each keeping its
+block (``data_block``). The eval tables are gathered whole on every rank. A
+process group with no ``--mesh`` is data-parallel over every rank, as in
+the JAX package. Only models with ``mesh_support = "sharded"`` (MF,
+LightGCN, DropoutNet) take a mesh; those whose JAX trainer never sets one
+up (``"one_device"``) ignore it; every other model refuses it. Under a
+group, rank 0 alone writes the bus and the train state; sharded tables and
+their Adam moments are gathered before the write and sharded again on
+resume.
 
 ``--debug_nans`` (JAX's ``jax_debug_nans``; ``main.run`` turns on autograd's
 anomaly mode, which checks every backward for NaN): each step's loss must
@@ -63,6 +67,7 @@ and nothing syncs.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List
 
@@ -123,10 +128,13 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     fused_ok = True
     current_epoch = None  # the epoch being trained, for --debug_nans
     # "sharded": the loss as partial sums and the tables through
-    # parallel.ops, so --mesh and process groups run (MF, LightGCN);
-    # "one_device": --mesh ignored, as the JAX trainer never sets up its
-    # mesh; "refuse": a mesh or group raises (ROADMAP Queue 1, item 7b)
+    # parallel.ops, so --mesh and process groups run (MF, LightGCN,
+    # DropoutNet); "one_device": --mesh ignored, as the JAX trainer never
+    # sets up its mesh; "refuse": a mesh or group raises (ROADMAP Queue 1,
+    # items 7c and 7d)
     mesh_support = "refuse"
+    # the ROADMAP.md Queue 1 item that brings a refusing model to the mesh
+    mesh_item = "7d"
     mesh = None
     sharded = frozenset()  # names of the row-sharded parameters
     _mesh_done = False
@@ -139,6 +147,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         (e.g. an :class:`OptimizerGroups`)."""
         if self._setup_mesh() is not None:
             self._shard_tables()
+            self._sync_batchnorm()
         self._fused_ok = (self.fused_ok and param_groups is None
                           and optimizer is None)
         if optimizer is None:
@@ -169,20 +178,47 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             raise NotImplementedError(
                 f"{self.model_name} on a mesh or a process group (--mesh "
                 f"{spec or 'unset'}, {process_count()} process(es)): the port "
-                "brings the data and model axes to MF and LightGCN only; the "
-                "other models wait for ROADMAP.md Queue 1, item 7b")
+                "brings the data and model axes to MF, LightGCN and "
+                f"DropoutNet only; {self.model_name} waits for ROADMAP.md "
+                f"Queue 1, item {self.mesh_item}")
         self.mesh = make_mesh(n_data, n_model)
         return self.mesh
 
     def _shard_tables(self):
-        """Keep this rank's row block of every table the rule shards."""
+        """Keep this rank's row block of every table the rule shards. A
+        table is a parameter of the model itself (``user_emb``), read
+        through ``lookup`` / ``full_table``; a weight of a submodule (a
+        Linear of DropoutNet's towers, (out, in) here where the JAX
+        package's is (in, out)) is used whole by its module, so it stays
+        replicated whatever its height."""
         rows = {self.data.user_num, self.data.item_num}
         names = []
-        for name, p in self.model.named_parameters():
+        for name, p in self.model.named_parameters(recurse=False):
             if shards_rows(tuple(p.shape), rows, self.mesh.n_model):
                 p.data = shard_rows(self.mesh, p.data).clone()
                 names.append(name)
         self.sharded = frozenset(names)
+
+    def _sync_batchnorm(self):
+        """Every ``MaskedBatchNorm1d`` of the model computes its statistics
+        over the data group (the global batch)."""
+        from .common import MaskedBatchNorm1d
+
+        for module in self.model.modules():
+            if isinstance(module, MaskedBatchNorm1d):
+                module.group = self.mesh.data_group
+
+    @property
+    def n_data(self) -> int:
+        """Ranks over which the batch is split (1 without a data axis)."""
+        return 1 if self.mesh is None else self.mesh.n_data
+
+    def data_block(self, x):
+        """This rank's contiguous block of ``x``, a tensor or array over the
+        global batch's rows (``x`` itself without a data axis)."""
+        if self.n_data == 1:
+            return x
+        return host_block(x, self.mesh.n_data, self.mesh.data_index)
 
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """Rows ``ids`` of the model's table ``name`` (the exchange or
@@ -214,10 +250,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     def _place_batch(self, batch: Dict[str, np.ndarray]):
         """This rank's contiguous block of the host batch over the data
         axis (``P(AXIS_DATA)``)."""
-        if self.mesh is None or self.mesh.n_data == 1:
-            return batch
-        return {k: host_block(v, self.mesh.n_data, self.mesh.data_index)
-                for k, v in batch.items()}
+        return {k: self.data_block(v) for k, v in batch.items()}
 
     def _reduce_grads(self):
         """Every gradient summed over the data group, in one all-reduce."""
@@ -325,8 +358,11 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     def _groups(self, k: int, secs: Dict):
         """The epoch's batches in their order: lists of ``k`` batches of one
         shape, every other batch alone (``k`` 0: each alone). Seconds spent
-        drawing them go to ``secs["host_s"]``."""
+        drawing them go to ``secs["host_s"]``. ``Config.epoch_steps`` > 0
+        stops the epoch after that many batches."""
         it = iter(self.batches())
+        if self.config.epoch_steps:
+            it = itertools.islice(it, self.config.epoch_steps)
         group = []
         while True:
             t = time.perf_counter()

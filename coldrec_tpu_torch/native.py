@@ -1,15 +1,18 @@
-"""ctypes bindings of the port's host C++: the negative sampler and FSGNN's
-PPR push.
+"""ctypes bindings of the port's host C++: the negative sampler, the
+permutation, the interaction CSV parser and FSGNN's PPR push.
 
 ``csrc/host_sampler.cpp`` is the port's copy of the JAX package's native
-sampler (its RNG, ``contains`` and ``sample_negatives``) and of its
+sampler (its RNG, ``contains`` and ``sample_negatives``), of its
+``permutation``, ``count_csv_rows`` and ``parse_interactions`` and of its
 forward-push PPR (``ppr_push_topk``). It is built with the host C++ compiler
 at first use into ``coldrec_tpu_torch/_build/`` (ignored by git), under a
 file name keyed by a hash of the source and the command, and moved into
 place atomically, so concurrent first uses need no lock. A missing
 compiler or a failed build raises: the numpy sampler draws other
-negatives, and the dense PPR is hours on the host at book-crossing shape
-and gives another graph, so nothing falls back quietly.
+negatives, ``np.loadtxt`` reads some files otherwise than the parser (a
+``-`` or ``.`` in an id, a CR, blank lines) and is an order of magnitude
+slower, and the dense PPR is hours on the host at book-crossing shape and
+gives another graph, so nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """The built sampler and PPR push with their argtypes set."""
+    """The built host library with its argtypes set."""
     lib = ctypes.CDLL(str(build()))
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
@@ -84,6 +87,12 @@ def load_library() -> ctypes.CDLL:
         i64p, ctypes.c_int64, ctypes.c_uint64, i64p,
     ]
     lib.sample_negatives.restype = None
+    lib.permutation.argtypes = [ctypes.c_int64, ctypes.c_uint64, i64p]
+    lib.permutation.restype = None
+    lib.count_csv_rows.argtypes = [ctypes.c_char_p]
+    lib.count_csv_rows.restype = ctypes.c_int64
+    lib.parse_interactions.argtypes = [ctypes.c_char_p, i64p, ctypes.c_int64]
+    lib.parse_interactions.restype = ctypes.c_int64
     lib.ppr_push_topk.argtypes = [
         ctypes.c_int64, ctypes.c_int64, i64p, i32p, i64p, i32p,
         ctypes.c_double, ctypes.c_double, ctypes.c_int32, i32p,
@@ -132,6 +141,38 @@ def sample_negatives_native(
         ctypes.c_uint64(seed & 0xFFFFFFFFFFFFFFFF), _ptr(out),
     )
     return out
+
+
+def permutation_native(n: int, seed: int) -> np.ndarray:
+    """(n,) int64 Fisher-Yates permutation of [0, n) from ``seed``: the JAX
+    package's ``native.permutation_native`` for the same seed."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    out = np.empty(n, np.int64)
+    load_library().permutation(n, ctypes.c_uint64(seed & 0xFFFFFFFFFFFFFFFF),
+                               _ptr(out))
+    return out
+
+
+def count_csv_rows(path: str) -> int:
+    """Lines of the file after its header (an unterminated last line
+    counts; blank lines count too, so this bounds the parser's rows)."""
+    n = load_library().count_csv_rows(os.fsencode(path))
+    if n < 0:
+        raise FileNotFoundError(f"cannot read {path!r}")
+    return int(n)
+
+
+def parse_interactions_native(path: str) -> np.ndarray:
+    """(N, 2) int64 ``(user, item)`` of a ``user,item[,...]`` CSV, header
+    skipped: the JAX package's ``native.parse_interactions_native`` (digits
+    only; a line with fewer than two fields adds no row)."""
+    n = count_csv_rows(path)
+    out = np.zeros((max(n, 1), 2), np.int64)
+    got = load_library().parse_interactions(os.fsencode(path), _ptr(out), n)
+    if got < 0:
+        raise FileNotFoundError(f"cannot read {path!r}")
+    return out[:got]
 
 
 def ppr_push_topk_native(

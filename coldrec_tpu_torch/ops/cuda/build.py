@@ -39,6 +39,13 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 300
 
 
+class CudaLaunchError(RuntimeError):
+    """A CUDA error returned by one of the library's entry points: the
+    launch was refused or the card is in an error state. Callers that
+    recover from ordinary failures (``param_search``'s failed trials) let
+    this one through."""
+
+
 @dataclass
 class BuildResult:
     path: Path
@@ -207,7 +214,7 @@ def sweep_parts(name: str, device: torch.device, n_users: int, d: int,
     with torch.cuda.device(device):
         parts = getattr(lib, name)(n_users, d, i_pad)
     if parts < 1:
-        raise RuntimeError(f"{name} failed: a CUDA error on {device}")
+        raise CudaLaunchError(f"{name} failed: a CUDA error on {device}")
     return parts
 
 
@@ -221,7 +228,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(*args, stream)
     if err:
-        raise RuntimeError(
+        raise CudaLaunchError(
             f"{name} launch failed: CUDA error {err} "
             f"({lib.coldrec_error_string(err).decode()})"
         )

@@ -19,17 +19,30 @@ and by this process alone (no group), and held against each other:
     9th excluded, k=10), ids equal to the unsharded server's; on the card
     every rank must have launched ``fused_sweep`` on its item block.
 
+  * ``bus``: one MF epoch (bs 256) under the mesh writing the embedding
+    bus (rank 0 writes), its tables against one rank's bus;
+  * ``dropoutnet``: one DropoutNet epoch on that bus under the mesh (its
+    BatchNorm statistics over the global batch) with a train state
+    checkpoint, its eval tables and BatchNorm running statistics within
+    ``TOL`` (bit-equal where D = 1);
+  * ``resume``: the same run resumed to epoch 2 from the checkpoint, its bus
+    tables row-sharded again (each rank ``1 / M`` of the rows), its eval
+    tables within ``TOL`` of one rank's resumed run.
+
 Prints one JSON line with each phase's result and exits non-zero on any
-failed rank or check. The DropoutNet (BatchNorm), resume and CGRC phases of
-the JAX dry run wait for ROADMAP.md Queue 1, item 7b.
+failed rank or check. The CGRC phase of the JAX dry run waits for
+ROADMAP.md Queue 1, item 7c.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +53,7 @@ from .distributed import (
 )
 
 TOL = 1e-5  # LightGCN, and MF over a data axis: sums in another order
+PHASES = ("mf", "lightgcn", "serve", "bus", "dropoutnet", "resume")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -70,6 +84,50 @@ def _step(model: str, spec: str, device: str, **kw) -> dict:
             "item_emb": trainer.item_emb.cpu().numpy()}
 
 
+def _bus_and_dropoutnet(spec: str, device: str, work: str) -> dict:
+    """Phases bus, dropoutnet and resume under mesh ``spec`` in ``work``
+    (the bus and the checkpoint there)."""
+    from ..config import default_args
+    from ..data.synthetic import synthetic_dataset
+    from ..models import model_factory
+    from ..models.common import MaskedBatchNorm1d
+    from ..runtime.checkpoints import load_embeddings
+    from ..runtime.trainer import Config
+    from .distributed import barrier
+
+    data, _ = synthetic_dataset(n_users=96, n_items=80, n_inter=1800,
+                                cold_object="item", seed=91)
+    emb, ckpt = os.path.join(work, "emb"), os.path.join(work, "dn.ckpt")
+    common = dict(dataset="synth", bs=256, emb_size=16, seed=5, mesh=spec,
+                  device=device, emb_dir=emb, early_stop=10)
+
+    def run(model, **kw):
+        trainer = model_factory(Config(default_args(
+            model=model, **common, **kw), data))
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.run()
+        return trainer
+
+    run("MF", epochs=1, save_emb=True)
+    barrier()
+    bus = load_embeddings(emb, "synth", "item", "MF")
+    out = {"bus/user_emb": bus["user_emb"], "bus/item_emb": bus["item_emb"]}
+    for phase, epochs in (("dropoutnet", 1), ("resume", 2)):
+        t = run("DropoutNet", epochs=epochs, save_emb=False, state_ckpt=ckpt,
+                dropoutnet_hidden1=16, dropoutnet_hidden2=8)
+        bns = [b for b in t.model.modules()
+               if isinstance(b, MaskedBatchNorm1d)]
+        out.update({
+            f"{phase}/user_emb": t.user_emb.cpu().numpy(),
+            f"{phase}/item_emb": t.item_emb.cpu().numpy(),
+            f"{phase}/bn": torch.cat([x for b in bns for x in (
+                b.running_mean, b.running_var)]).cpu().numpy(),
+            f"{phase}/table_rows": np.asarray(
+                [t.model.user_emb.shape[0], t.model.item_emb.shape[0]]),
+        })
+    return out
+
+
 def _serve(spec: str, device: str) -> dict:
     from ..ops.cuda.retrieval import fused_sweep
     from ..runtime.serving import RetrievalServer
@@ -87,18 +145,24 @@ def _serve(spec: str, device: str) -> dict:
             "launches": np.asarray(fused_sweep.launches)}
 
 
-def phases(spec: str, device: str) -> dict:
+def phases(spec: str, device: str, work: Optional[str] = None) -> dict:
     """Every phase under mesh ``spec`` ("" = one rank), flattened to
-    ``{phase/key: array}``."""
+    ``{phase/key: array}``; the bus and the checkpoint go under ``work``
+    (a temporary directory if None)."""
     out = {}
     for name, res in (("mf", _step("MF", spec, device)),
                       ("lightgcn", _step("LightGCN", spec, device, layers=2)),
                       ("serve", _serve(spec, device))):
         out.update({f"{name}/{k}": v for k, v in res.items()})
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(tempfile.TemporaryDirectory())
+        out.update(_bus_and_dropoutnet(spec, device, work))
     return out
 
 
-def compare(ranks: dict, one: dict, n_data: int, cuda: bool) -> dict:
+def compare(ranks: dict, one: dict, n_data: int, n_model: int,
+            cuda: bool) -> dict:
     """Each phase's verdict: {"ok", "max_abs_err", ...}."""
     def gap(phase, keys):
         return max(float(np.abs(ranks[f"{phase}/{k}"]
@@ -109,7 +173,21 @@ def compare(ranks: dict, one: dict, n_data: int, cuda: bool) -> dict:
     lg_gap = gap("lightgcn", keys)
     ids_equal = bool(np.array_equal(ranks["serve/ids"], one["serve/ids"]))
     launches = int(ranks["serve/launches"])
+    tables = ("user_emb", "item_emb")
+    bus_gap = gap("bus", tables)
+    dn_gap = gap("dropoutnet", tables + ("bn",))
+    resume_gap = gap("resume", tables + ("bn",))
+    rows = one["resume/table_rows"] // n_model
+    sharded = bool(np.array_equal(ranks["resume/table_rows"], rows))
     return {
+        "bus": {"ok": bus_gap == 0.0 if n_data == 1 else bus_gap <= TOL,
+                "max_abs_err": bus_gap},
+        "dropoutnet": {"ok": dn_gap == 0.0 if n_data == 1 else dn_gap <= TOL,
+                       "max_abs_err": dn_gap, "bit_equal": dn_gap == 0.0},
+        "resume": {"ok": (resume_gap == 0.0 if n_data == 1
+                          else resume_gap <= TOL) and sharded,
+                   "max_abs_err": resume_gap, "sharded_rows":
+                   ranks["resume/table_rows"].tolist()},
         "mf": {"ok": mf_gap == 0.0 if n_data == 1 else mf_gap <= TOL,
                "max_abs_err": mf_gap, "bit_equal": mf_gap == 0.0},
         "lightgcn": {"ok": lg_gap <= TOL, "max_abs_err": lg_gap},
@@ -124,7 +202,7 @@ def child(out_dir: str, device: str) -> None:
     init_distributed(device=device)
     dev = str(rank_device(device))
     n_data, n_model = layout(process_count())
-    res = phases(f"{n_data}x{n_model}", dev)
+    res = phases(f"{n_data}x{n_model}", dev, os.path.join(out_dir, "work"))
     np.savez(os.path.join(out_dir, f"rank{process_index()}.npz"), **res)
     shutdown_distributed()
 
@@ -159,16 +237,16 @@ def main(argv=None) -> int:
                 return 1
         per_rank = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
                     for r in range(a.ranks)]
-    one = phases("", a.device)
+        one = phases("", a.device, os.path.join(tmp, "one"))
     verdict = {"ranks": a.ranks, "mesh": f"{n_data}x{n_model}",
-               "device": a.device, **compare(per_rank[0], one, n_data, cuda)}
+               "device": a.device,
+               **compare(per_rank[0], one, n_data, n_model, cuda)}
     # every rank of a phase holds the same replicated result
     verdict["ranks_agree"] = all(
         np.array_equal(res[k], per_rank[0][k]) for res in per_rank[1:]
         for k in res if not k.endswith("launches"))
     print(json.dumps(verdict))
-    ok = verdict["ranks_agree"] and all(
-        verdict[p]["ok"] for p in ("mf", "lightgcn", "serve"))
+    ok = verdict["ranks_agree"] and all(verdict[p]["ok"] for p in PHASES)
     return 0 if ok else 1
 
 

@@ -21,6 +21,11 @@ written from what is replicated downstream:
     slice).
   * :class:`CopyToGroup`: a replicated tensor entering a row-sharded
     computation: the identity forward, the sum over the group backward.
+  * :class:`AllReduceSum`: a sum over a group whose every rank goes on with
+    its own rows (the BatchNorm statistics of the global batch: each rank
+    normalises its own block with them, and its loss part reaches every
+    rank's rows through them). The backward is the sum of the incoming
+    gradients over the group.
 
 The kernel on this module's path is the ported ``fused_sweep``
 (``ops/cuda/retrieval.py``), launched by :func:`sharded_retrieval_topk` on
@@ -57,6 +62,20 @@ class AllReduceIdentity(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """Sum over ``group``; backward the sum of the gradients over ``group``
+    (each rank's own computation depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), ctx.group), None
 
 
 class AllGatherRows(torch.autograd.Function):

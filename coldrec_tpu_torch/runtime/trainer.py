@@ -131,15 +131,19 @@ def three_way_test(
 
 
 class Config:
-    """Bundles parsed args + built dataset (reference: main.py Config)."""
+    """Bundles parsed args + built dataset (reference: main.py Config).
+    ``epoch_steps`` > 0 cuts every training epoch to its first that many
+    batches (a short run of the full-width model); 0 trains whole epochs."""
 
-    def __init__(self, args, data: Optional[ColdStartDataset] = None):
+    def __init__(self, args, data: Optional[ColdStartDataset] = None,
+                 epoch_steps: int = 0):
         self.args = args
         if data is None:
             data = ColdStartDataset.from_split_dir(
                 args.data_dir, args.dataset, args.cold_object
             )
         self.data = data
+        self.epoch_steps = int(epoch_steps)
 
 
 class BaseColdStartTrainer(ABC):
@@ -182,6 +186,7 @@ class BaseColdStartTrainer(ABC):
         self.overall_test_results = None
         self.cold_test_results = None
         self.warm_test_results = None
+        self.test_results = None  # run()'s three_way_test output
         self.train_start_time = 0.0
         self.train_end_time = 0.0
         # host RNG for the samplers, consumed as the JAX package does
@@ -335,6 +340,7 @@ class BaseColdStartTrainer(ABC):
             sweep=self.sweep,
         )
         test_seconds = time.perf_counter() - t
+        self.test_results = res  # the lists and metrics of each setting
         for test_type in ("all", "cold", "warm"):
             print("*" * 80)
             print(f"Testing under [{test_type}] setting...")

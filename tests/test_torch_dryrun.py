@@ -2,8 +2,11 @@
 (meshes 1x2 and 2x2): each phase of the ranks against one rank in the
 parent, exit 0 and one JSON verdict: MF bit-equal to one rank where there
 is no data axis (1x2) and within ``dryrun.TOL`` with one, LightGCN within
-``dryrun.TOL``, the mesh server's ids equal, every rank's results the
-same."""
+``dryrun.TOL``, the mesh server's ids equal; the MF epoch's bus, the
+DropoutNet epoch on it (BatchNorm over the global batch, a train state
+checkpoint) and its resume to epoch 2 bit-equal to one rank at 1x2 and
+within ``dryrun.TOL`` at 2x2, the resumed bus tables row-sharded again;
+every rank's results the same."""
 import json
 import os
 import subprocess
@@ -41,3 +44,16 @@ def test_dryrun_phases_match_one_rank(verdicts, n, mesh):
     assert v["serve"]["ids_equal"]
     if mesh == "1x2":
         assert v["mf"]["bit_equal"]
+
+
+@pytest.mark.parametrize("n,mesh", [(2, "1x2"), (4, "2x2")])
+def test_dryrun_dropoutnet_phases_match_one_rank(verdicts, n, mesh):
+    """The JAX dry run's phase 2: the MF bus, DropoutNet on the mesh with a
+    checkpoint, and the resume with its tables sharded again."""
+    v = verdicts[n]
+    assert v["bus"]["ok"] and v["dropoutnet"]["ok"] and v["resume"]["ok"]
+    # 96 users and 80 items over a model axis of 2
+    assert v["resume"]["sharded_rows"] == [48, 40]
+    if mesh == "1x2":
+        assert v["dropoutnet"]["bit_equal"]
+        assert v["bus"]["max_abs_err"] == v["resume"]["max_abs_err"] == 0.0

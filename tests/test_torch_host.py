@@ -94,7 +94,7 @@ def test_ranking_evaluation_identical(rng):
 
 
 def test_split_dir_round_trip(tmp_path):
-    """A split directory the JAX package writes loads in the port (numpy
+    """A split directory the JAX package writes loads in the port (its C++
     parser) into the dataset the JAX package builds in memory."""
     pairs = jsynth.synthetic_interactions(100, 70, 2500, seed=4)
     res = jsplit.cold_start_split(pairs, cold_object="item", seed=1)

@@ -3,8 +3,11 @@ process where jax and coldrec_tpu are blocked (``_run_blocked``): the
 script's own rank entry (``chip_smoke.py --rank``) started as gloo ranks on
 localhost, (a) a 1x2 mesh server id-equal to one rank's, (b) MF ``--mesh
 1x2`` bit-equal to one rank, (c) MF data-parallel on 2 ranks and (d)
-LightGCN ``--mesh 2x2`` on 4 ranks within their tolerances, every rank's
-backend and device logged, rank 0 the only writer."""
+LightGCN ``--mesh 2x2`` on 4 ranks within their tolerances, then on (c)'s
+bus (e) DropoutNet ``--mesh 1x2`` bit-equal to one rank and (f) DropoutNet
+``--mesh 2x2`` within its tolerances, its BatchNorm running statistics
+equal on every rank; every rank's backend and device logged, rank 0 the
+only writer."""
 from test_torch_imports import _run_blocked
 from test_torch_threads import torch_threads  # noqa: F401
 
@@ -33,5 +36,8 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu_without_jax(tmp_path):
                  "'64/64']", "(b) 2 ranks vs one: losses 0.000e+00",
                  "tables 0.000e+00, metrics 0.000e+00",
                  "(c) 2 ranks vs one", "(d) 4 ranks vs one",
+                 "(e) 2 ranks vs one: losses 0.000e+00",
+                 "(f) 4 ranks vs one", "(f) --model DropoutNet --mesh 2x2",
+                 "BatchNorm running statistics equal on every rank",
                  "rank 3 on cpu"):
         assert line in proc.stdout, line
