@@ -234,7 +234,8 @@ Phases, each printed with its seconds:
               server's by the rule of phase 3, every rank launching
               ``fused_sweep`` on every request, seconds per request logged
               beside the one-rank server's and the staging seconds; (b) MF
-              ``--mesh 1x2`` one epoch on phase train's split, kernel eval,
+              ``--mesh 1x2`` on phase train's split, one epoch (215
+              batches), kernel eval,
               deterministic algorithms on in the ranks and the one-rank
               run: losses and bus tables bit-equal to one rank's, equal test
               metrics, rank 0 alone writing the result file (both ranks
@@ -243,7 +244,8 @@ Phases, each printed with its seconds:
               with the plain (partitioned) eval: losses within 1e-5
               relative, test metrics within 1e-9 or, where they differ, the
               lists of both buses id-equal but at near-ties; (d) LightGCN
-              ``--mesh 2x2`` (4 ranks, 2 layers) held as (c), kernel eval.
+              ``--mesh 2x2`` (4 ranks, 2 layers; one epoch, 123
+              batches) held as (c), kernel eval.
               The rank groups of (a)-(d) start at once, beside the
               one-rank runs; as soon as (c)'s two ranks have written the
               MF bus, on it, (e) DropoutNet ``--mesh 1x2``
@@ -256,7 +258,33 @@ Phases, each printed with its seconds:
               rank's BatchNorm running statistics equal (sha256 in its
               line), kernel eval (the same run in float64, where the
               losses stay within 1e-12, is
-              ``coldrec_tpu_torch/tools/mesh_drift.py --device cuda``);
+              ``coldrec_tpu_torch/tools/mesh_drift.py --device cuda``).
+              Then, on ``ml_synth``, each trained for
+              ``MESH_STEPS`` batches of one epoch (its one-rank run too;
+              ``--epoch_steps`` among the rank flags), kernel eval, each
+              held as (c): (g) XSimGCL ``--mesh 2x2`` and (h) SimGCL
+              ``--mesh 1x2``, deterministic (2 layers; the noise drawn as
+              the whole plane on every rank, the InfoNCE over the global
+              batch); (i) NGCF ``--mesh 2x2`` (its Linears' gradients
+              summed over the model group); (j) NCL ``--mesh 2x2``,
+              deterministic, its proto term and e-step on from epoch 0
+              (``--ncl_proto``: the k-means of the gathered tables on
+              every rank); (k) CGRC ``--mesh 2x2``, deterministic, on
+              ``ml_synth`` with ``ML_CONTENT`` N(0,1) item columns (the
+              user table row-sharded, every rank building the same Ĝ).
+              The ranks of (g), (h) and (k) record every perturbed
+              layer's values or every Ĝ top-k with its logits
+              (``mesh_record``); their one-rank runs come after them and,
+              where a perturbed element took the other sign or a cold
+              item's top-k users differ, must find a float32 tie
+              (``MESH_TIE_REL``; CGRC's logits at the ranks' top-k within
+              ``MESH_LOGIT_DRIFT``) and take the ranks' side
+              (``mesh_replay``): anything else fails the phase, and the
+              two runs do not part at a tie (float64: ``mesh_drift
+              --model``).
+              (h) runs in (b)'s ranks after it, (g), (i), (j), (k) in
+              (d)'s after it (``MESH_CHAINS``: one start-up and fewer
+              processes sharing the card), each run with its own stats;
   8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep, its bf16 instance
               and the merge): the kernel, its plain version and one library
@@ -546,6 +574,19 @@ MESH_METRIC_TOL = 1e-9  # tests/test_multiprocess.py
 # (tests/test_multiprocess.py's bound)
 MESH_TABLE_TOL = 1e-5
 MESH_DN_METRIC_TOL = 2e-3
+# Phase mesh (g), (h), (k): a float32 tie between the ranks and the one-rank
+# run. A perturbed element whose two values lie on either side of 0 (the
+# noise takes its sign) is a tie where both lie within MESH_TIE_REL of their
+# row's largest |value| (sums taken in another order put them ~1e-7 of it
+# apart; a mesh fault puts a differing element anywhere in its row). CGRC's
+# edge-MLP logits at the ranks' top-k users must lie within MESH_LOGIT_DRIFT
+# of the row's largest in the two runs (Adam carries the rounding of the
+# edge MLP's gradients: 6.7e-5 after 10 steps on the card), and a cold item's
+# top-k users swapped between the runs is a tie where the gap of the swapped
+# logits is within twice that drift (floor MESH_TIE_REL). The one-rank run
+# takes the ranks' side of each tie (``mesh_replay``); all else fails.
+MESH_TIE_REL = 1e-4
+MESH_LOGIT_DRIFT = 1e-3
 MESH_RANK_S = 600  # a rank group's time limit
 SEARCH_TRIALS = 3  # phase search's trials before its resume
 SEARCH_MEM_RTOL = 0.05  # allocated after the last trial vs the first
@@ -553,7 +594,11 @@ T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg``; from a worker thread to the process's own stdout, so
+    that a line logged while the main thread has redirected ``sys.stdout``
+    (a one-rank run of phase mesh) is not swallowed."""
+    main = threading.current_thread() is threading.main_thread()
+    print(msg, file=sys.stdout if main else sys.__stdout__, flush=True)
 
 
 class Checks:
@@ -2461,19 +2506,18 @@ def _tables_gap(got: dict, ref: dict):
 @contextlib.contextmanager
 def perturb_signs(active=True):
     """Yields a list that gets sign(e) (int8, on the host) of every
-    perturbed layer of the SimGCL forwards run inside the block on this
-    thread: its noise is sign(e) * U * eps, so where two runs' sums of an
-    element fall on either side of 0 their forwards part by up to 2 * eps *
-    U there."""
+    perturbed layer of the SimGCL and XSimGCL forwards run inside the block
+    on this thread (on a mesh graph the rank's node block): their noise is
+    sign(e) * U * eps, so where two runs' sums of an element fall on either
+    side of 0 their forwards part by up to 2 * eps * U there."""
     signs = []
     perturb = simgcl_mod.perturb
     owner = threading.get_ident()
 
-    def recording(ego, eps, noise=None, generator=None):
-        if ((noise is not None or generator is not None)
-                and threading.get_ident() == owner):
+    def recording(ego, eps, noise):
+        if threading.get_ident() == owner:
             signs.append(torch.sign(ego.detach()).to(torch.int8).cpu())
-        return perturb(ego, eps, noise, generator)
+        return perturb(ego, eps, noise)
 
     if active:
         simgcl_mod.perturb = recording
@@ -3287,43 +3331,117 @@ def parse_run(root, ds="bx_synth", cold_object="item"):
 
 
 # ------------------------------------------------------------ phase mesh
-def rank_main(argv) -> int:
-    """One rank of phase mesh: ``chip_smoke.py --rank cli FLAGS...`` runs
-    the port's CLI entry (``main.run``) on the CLI's flags, ``--rank serve
-    SPEC`` answers the requests of a JSON spec through a 1x2 mesh
-    ``RetrievalServer``; ``--deterministic`` among the flags turns on
-    deterministic algorithms. The event log (if any) gets ``.rank<r>``
-    appended. Prints its device, launch counts and host staging as its
-    last line (the collectives' calls and seconds too), then leaves
-    through a barrier."""
-    kind, rest = argv[0], list(argv[1:])
-    if "--deterministic" in rest:
-        rest.remove("--deterministic")
-        warnings.simplefilter("ignore", UserWarning)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-    rank = int(os.environ["COLDREC_PROCESS_ID"])
-    if os.environ.get("COLDREC_EVENT_LOG"):
-        os.environ["COLDREC_EVENT_LOG"] += f".rank{rank}"
-    reset_launches()
-    extra = {}
-    if kind == "cli":
-        args = make_args(rest)
-        made = []
-        with contextlib.redirect_stdout(io.StringIO()) as out:
-            tmain.run(args, on_model=made.append)
-        device = args.device
-        extra["backend"] = [ln for ln in out.getvalue().splitlines()
-                            if ln.startswith("process group:")]
-        extra["bn_sha256"] = bn_digest(made[-1].model)
-    elif kind == "serve":
-        device, extra = serve_rank(rest[0])
-    else:
-        raise ValueError(f"--rank {kind!r}: cli or serve")
-    line = {"rank": rank, "device": str(device), "launches": launch_counts(),
-            "staging_s": host_staging.seconds,
+def rank_flags(flags):
+    """(CLI flags, deterministic, epoch_steps, ncl_proto, events) of a run's
+    flags: ``--deterministic`` (deterministic algorithms), ``--epoch_steps
+    N`` (``main.run(epoch_steps=N)``), ``--ncl_proto`` (NCL's proto term and
+    e-step on from epoch 0, its warm-up cut as ``ncl_proto`` cuts it) and
+    ``--events PATH`` (the run's event log) taken out."""
+    rest = list(flags)
+    det = "--deterministic" in rest
+    proto = "--ncl_proto" in rest
+    rest = [f for f in rest if f not in ("--deterministic", "--ncl_proto")]
+    steps, events = 0, ""
+    for flag in ("--epoch_steps", "--events"):
+        if flag in rest:
+            i = rest.index(flag)
+            if flag == "--epoch_steps":
+                steps = int(rest[i + 1])
+            else:
+                events = rest[i + 1]
+            del rest[i:i + 2]
+    return rest, det, steps, proto, events
+
+
+@contextlib.contextmanager
+def proto_on(on: bool = True):
+    """NCL's proto term and e-step from epoch 0 inside the block."""
+    was = ncl_mod.WARMUP_EPOCHS
+    if on:
+        ncl_mod.WARMUP_EPOCHS = 0
+    try:
+        yield
+    finally:
+        ncl_mod.WARMUP_EPOCHS = was
+
+
+def _counters() -> dict:
+    return {"launches": launch_counts(), "staging_s": host_staging.seconds,
             "staging_bytes": host_staging.bytes,
             "collectives": run_collective.calls,
-            "collective_s": run_collective.seconds, **extra}
+            "collective_s": run_collective.seconds}
+
+
+def _since(before: dict) -> dict:
+    """The launches (zeroed at the start), collectives and staging of a run
+    from the counters read before it."""
+    now = _counters()
+    return {k: now[k] if k == "launches" else now[k] - before[k]
+            for k in now}
+
+
+def cli_rank_run(flags, rank: int):
+    """One CLI run of a rank (``main.run`` on ``flags``, ``rank_flags``'
+    switches applied): (its stats, its device, the group's backend line if
+    this run opened the group)."""
+    rest, det, epoch_steps, proto, events = rank_flags(flags)
+    torch.use_deterministic_algorithms(det, warn_only=True)
+    if events:
+        events += f".rank{rank}"
+        os.environ["COLDREC_EVENT_LOG"] = events
+    reset_launches()
+    before = _counters()
+    args = make_args(rest)
+    made = []
+    record = args.model if events else None
+    data = read_split(args.data_dir, args.dataset, args.cold_object)
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            proto_on(proto), mesh_record(record) as rec:
+        tmain.run(args, made.append, data, epoch_steps)
+    if rec:
+        np.savez(events + ".record.npz",
+                 *[a for x in rec for a in (x if isinstance(x, tuple)
+                                            else (x,))])
+    backend = [ln for ln in out.getvalue().splitlines()
+               if ln.startswith("process group:")]
+    return ({**_since(before), "bn_sha256": bn_digest(made[-1].model)},
+            args.device, backend)
+
+
+def rank_main(argv) -> int:
+    """One rank of phase mesh: ``chip_smoke.py --rank cli FLAGS... [--then
+    FLAGS...]...`` runs the port's CLI entry (``main.run``) on each run's
+    flags in turn, in this one process and group; ``--rank serve SPEC``
+    answers the requests of a JSON spec through a 1x2 mesh
+    ``RetrievalServer``. ``--deterministic``, ``--epoch_steps N``,
+    ``--ncl_proto`` and ``--events PATH`` among a run's flags act as
+    ``rank_flags`` says; the event log gets ``.rank<r>`` appended, and a
+    SimGCL, XSimGCL or CGRC run writes what ``mesh_record`` records beside
+    it, ``<log>.record.npz``. Prints as its last
+    line its device, the group's backend line and, for each run, its launch
+    counts, collectives (calls, seconds) and host staging, then leaves
+    through a barrier."""
+    warnings.simplefilter("ignore", UserWarning)
+    kind, rest = argv[0], list(argv[1:])
+    rank = int(os.environ["COLDREC_PROCESS_ID"])
+    runs, backend = [], []
+    if kind == "cli":
+        while rest:
+            cut = rest.index("--then") if "--then" in rest else len(rest)
+            stats, device, opened = cli_rank_run(rest[:cut], rank)
+            runs.append(stats)
+            backend = backend or opened
+            rest = rest[cut + 1:]
+    elif kind == "serve":
+        reset_launches()
+        before = _counters()
+        device, extra = serve_rank(rest[0])
+        backend = extra.pop("backend")
+        runs.append({**_since(before), **extra})
+    else:
+        raise ValueError(f"--rank {kind!r}: cli or serve")
+    line = {"rank": rank, "device": str(device), "backend": backend,
+            "runs": runs}
     shutdown_distributed()
     print(json.dumps(line), flush=True)
     return 0
@@ -3364,32 +3482,44 @@ def serve_rank(spec_path: str):
                     "backend": out.getvalue().strip().splitlines()}
 
 
-def run_ranks(tag, argv, n, env, device):
-    """``chip_smoke.py --rank ARGV`` as ``n`` ranks; every rank must exit 0
-    and say it computed on ``device``'s type through a logged backend.
-    Returns their last lines, parsed."""
+def run_ranks(tags, argv, n, env, device):
+    """``chip_smoke.py --rank ARGV`` as ``n`` ranks, whose runs are
+    ``tags`` (labels, in order); every rank must exit 0 and say it computed
+    on ``device``'s type through a logged backend. Returns, for each run,
+    its ranks' lines (each rank's stats of that run, with its rank, device
+    and backend)."""
     t = time.perf_counter()
     runs = launch_ranks([sys.executable, os.path.abspath(__file__),
                          "--rank", *argv], n, MESH_RANK_S, env)
     failed = [(r, code, out) for r, (code, out) in enumerate(runs) if code]
     if failed:  # a rank that failed on its own before one that was stopped
         r, code, out = max(failed, key=lambda f: f[1] > 0)
-        raise AssertionError(f"mesh {tag}: ranks {[f[:2] for f in failed]} "
-                             f"(rank, exit code); rank {r}:\n{out[-3000:]}")
+        raise AssertionError(f"mesh {tags[0]}: ranks "
+                             f"{[f[:2] for f in failed]} (rank, exit code); "
+                             f"rank {r}:\n{out[-3000:]}")
     lines = [json.loads(out.strip().splitlines()[-1]) for _, out in runs]
     for line in lines:
         if not (any("backend" in b for b in line["backend"])
                 and line["device"].startswith(device.type)):
-            raise AssertionError(f"mesh {tag}: rank {line['rank']} logged no "
-                                 f"backend or left {device.type}: {line}")
-    log(f"  {tag}: {n} ranks {time.perf_counter() - t:.2f} s; "
-        f"{lines[0]['backend'][0]}; per rank: "
-        + "; ".join(f"rank {x['rank']} on {x['device']}: fused_sweep "
-                    f"{x['launches']['fused_sweep']}, {x['collectives']} "
-                    f"collectives {x['collective_s']:.3f} s, staging "
-                    f"{x['staging_s']:.3f} s / "
-                    f"{x['staging_bytes'] / 2**20:.1f} MiB" for x in lines))
-    return lines
+            raise AssertionError(f"mesh {tags[0]}: rank {line['rank']} logged "
+                                 f"no backend or left {device.type}: {line}")
+    secs = time.perf_counter() - t
+    out = []
+    for i, tag in enumerate(tags):
+        per_run = [{**x["runs"][i], "rank": x["rank"], "device": x["device"],
+                    "backend": x["backend"]} for x in lines]
+        where = (f" (run {i + 1} of {len(tags)} in the group)"
+                 if len(tags) > 1 else "")
+        log(f"  {tag}: {n} ranks{'' if i else f' {secs:.2f} s'}{where}"
+            f"; {lines[0]['backend'][0]}; per rank: "
+            + "; ".join(f"rank {x['rank']} on {x['device']}: fused_sweep "
+                        f"{x['launches']['fused_sweep']}, {x['collectives']} "
+                        f"collectives {x['collective_s']:.3f} s, staging "
+                        f"{x['staging_s']:.3f} s / "
+                        f"{x['staging_bytes'] / 2**20:.1f} MiB"
+                        for x in per_run))
+        out.append(per_run)
+    return out
 
 
 def _rank_epochs(events, n):
@@ -3430,11 +3560,11 @@ def mesh_serve(device, root, ds, env, pool, d=D, seed=0, serve=MESH_SERVE):
     with open(spec, "w") as f:
         json.dump({"device": device.type, "root": root, "ds": ds,
                    "emb": emb, "requests": req_path, "out": out}, f)
-    ranks = pool.submit(run_ranks, "(a) serve 1x2", ["serve", spec], 2, env,
-                        device)
+    ranks = pool.submit(run_ranks, ["(a) serve 1x2"], ["serve", spec], 2,
+                        env, device)
 
     def finish():
-        lines = ranks.result()
+        lines = ranks.result()[0]
         got = np.load(out)
         equal = []
         for key in sorted(requests):
@@ -3457,7 +3587,9 @@ def mesh_serve(device, root, ds, env, pool, d=D, seed=0, serve=MESH_SERVE):
     return finish
 
 
-MESH_RUNS = {  # tag: (ranks, "bx" or "ml" split, model flags, mesh flags)
+MESH_STEPS = 10  # batches of (g)-(k)'s one epoch
+MESH_RUNS = {  # tag: (ranks, "bx", "ml" or "mlc" split, model flags, mesh
+    # flags: the ranks' own, and rank_flags' switches for both runs)
     # "--deterministic": deterministic algorithms in the ranks and in the
     # one-rank run; (b) and (e) are held bit for bit
     "b": (2, "bx", ["--model", "MF"], ["--mesh", "1x2", "--deterministic"]),
@@ -3470,37 +3602,262 @@ MESH_RUNS = {  # tag: (ranks, "bx" or "ml" split, model flags, mesh flags)
                                                 "--deterministic"]),
     "f": (4, "ml", ["--model", "DropoutNet"], ["--mesh", "2x2",
                                                 "--deterministic"]),
+    # the graph backbones and CGRC, MESH_STEPS batches of one epoch each (the
+    # one-rank runs too); (j) with NCL's proto term and e-step on from epoch
+    # 0; (k) on "mlc", the ml_synth split with ML_CONTENT item columns
+    "g": (4, "ml", ["--model", "XSimGCL", "--layers", "2"],
+          ["--mesh", "2x2", "--deterministic", "--epoch_steps",
+           str(MESH_STEPS)]),
+    "h": (2, "ml", ["--model", "SimGCL", "--layers", "2"],
+          ["--mesh", "1x2", "--deterministic", "--epoch_steps",
+           str(MESH_STEPS)]),
+    "i": (4, "ml", ["--model", "NGCF", "--layers", "2"],
+          ["--mesh", "2x2", "--epoch_steps", str(MESH_STEPS)]),
+    "j": (4, "ml", ["--model", "NCL", "--layers", "2"],
+          ["--mesh", "2x2", "--deterministic", "--epoch_steps",
+           str(MESH_STEPS), "--ncl_proto"]),
+    "k": (4, "mlc", ["--model", "CGRC"],
+          ["--mesh", "2x2", "--deterministic", "--epoch_steps",
+           str(MESH_STEPS)]),
 }
+SIGNED_MODELS = ("SimGCL", "XSimGCL")  # their noise takes each sign
+# the models whose one-rank run takes its ranks' side of each float32 tie
+# (``mesh_replay``; deterministic: every data rank computes the same forward)
+REPLAYED_MODELS = SIGNED_MODELS + ("CGRC",)
 # these ranks (and their one-rank runs) start once the ranks of the tag they
 # name have written its MF bus
 MESH_AFTER = {"e": "c", "f": "c"}
+# rank groups that run several tags one after another in the same processes
+# (one start-up, fewer processes sharing the card): the first tag's ranks
+MESH_CHAINS = {"b": "bh", "d": "dgijk"}
 MESH_BIT_EQUAL = "be"
 # (f)'s float32 losses part from one rank's after ~50 steps, on the CPU as on
 # the card, and so do float32's from float64's (PERF.md §6; in float64 they
 # stay within 1e-12: ``tools/mesh_drift.py``): its first STEP_CHECK losses
 # are held, its eval tables and its metrics after the epoch
 MESH_HELD_STEPS = {"f": STEP_CHECK}
-MESH_KERNEL_EVAL = "bdef"  # every rank of these launches fused_sweep
+MESH_KERNEL_EVAL = "bdefghijk"  # every rank of these launches fused_sweep
 
 
 def _arg(argv, flag: str) -> str:
     return argv[argv.index(flag) + 1]
 
 
+def content_split(root, ds, to, columns, seed=0):
+    """The split ``root/ds`` (item cold) as ``root/to`` with an N(0,1)
+    item content of ``columns`` columns in place of its own."""
+    shutil.copytree(os.path.join(root, ds, "cold_item"),
+                    os.path.join(root, to, "cold_item"), dirs_exist_ok=True)
+    n_items = np.load(os.path.join(root, ds, f"{ds}_item_content.npy"),
+                      mmap_mode="r").shape[0]
+    np.save(os.path.join(root, to, f"{to}_item_content.npy"),
+            np.random.default_rng(seed + 2).standard_normal(
+                (n_items, columns), dtype=np.float32))
+
+
+def edge_scores(model, h_u_bar, x_cold, users):
+    """(C, n) edge-MLP logits of cold item c and user ``users[c, j]``, the
+    logits ``CGRC.topk_users`` ranks, less the output bias: it shifts every
+    logit alike, and its exact gradient is 0 (Adam walks it on rounding
+    noise, differently in two runs)."""
+    with torch.no_grad():
+        hu, xi = model.edge_parts(h_u_bar, x_cold)
+        b1, w2, _ = model.mlp_tail()
+        return torch.relu(hu[users] + (xi + b1)[:, None, :]) @ w2
+
+
+def _row_rel(x):
+    """|x| over its row's largest |x|."""
+    a = x.abs()
+    return a / a.amax(1, keepdim=True).clamp_min(torch.finfo(a.dtype).tiny)
+
+
+@contextlib.contextmanager
+def _swapped(owner, name, fn):
+    was = getattr(owner, name)
+    setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, name, was)
+
+
+@contextlib.contextmanager
+def mesh_record(model):
+    """Yields a list that gets, from the forwards run inside the block on
+    this thread, the values of every perturbed layer of a SimGCL or XSimGCL
+    run (float32 on the host; on a mesh graph this rank's node block), or
+    (users, logits) of every Ĝ top-k of a CGRC run; nothing for another
+    model."""
+    rec, owner = [], threading.get_ident()
+    if model in SIGNED_MODELS:
+        perturb = simgcl_mod.perturb
+
+        def recording(ego, eps, noise):
+            if threading.get_ident() == owner:
+                rec.append(ego.detach().float().cpu().numpy())
+            return perturb(ego, eps, noise)
+
+        swap = (simgcl_mod, "perturb", recording)
+    elif model == "CGRC":
+        topk = cgrc_mod.CGRC.topk_users
+
+        def recording(self, h_u_bar, x_cold, k):
+            top = topk(self, h_u_bar, x_cold, k)
+            if threading.get_ident() == owner:
+                rec.append((top.cpu().numpy(), edge_scores(
+                    self, h_u_bar, x_cold, top).float().cpu().numpy()))
+            return top
+
+        swap = (cgrc_mod.CGRC, "topk_users", recording)
+    else:
+        yield rec
+        return
+    with _swapped(*swap):
+        yield rec
+
+
+def _record(path, model) -> list:
+    """What ``mesh_record`` recorded in a rank, from its file."""
+    with np.load(path) as f:
+        arrays = [f[f"arr_{i}"] for i in range(len(f.files))]
+    return (list(zip(arrays[::2], arrays[1::2])) if model == "CGRC"
+            else arrays)
+
+
+@contextlib.contextmanager
+def mesh_replay(model, ranks, n_model):
+    """The one-rank run of a REPLAYED_MODELS group on its ranks' records
+    (``ranks[r]``: rank r's ``mesh_record``, rank r holding node block r %
+    ``n_model``). Every rank of a block must have recorded the same (CGRC:
+    every rank the same Ĝ). Where this run differs from the ranks, each
+    difference must be a tie (``MESH_TIE_REL``, CGRC's logits within
+    ``MESH_LOGIT_DRIFT``) and the run takes the
+    ranks' side: their sign of a perturbed element, their top-k users of a
+    cold item in Ĝ; anything else raises. Yields {"calls", "ties"
+    (elements, or users swapped), "where" (perturbed layers, or cold
+    items), "worst" (the largest tie, of its row's largest), "drift" (CGRC:
+    the largest gap of the two runs' logits at the ranks' top-k, of the
+    row's largest)}."""
+    stats = {"calls": 0, "ties": 0, "where": [], "worst": 0.0,
+             "drift": 0.0}
+    if model == "CGRC":
+        for r, rec in enumerate(ranks):
+            if len(rec) != len(ranks[0]) or any(
+                    not np.array_equal(a[0], b[0])
+                    for a, b in zip(rec, ranks[0])):
+                raise AssertionError(f"CGRC: rank {r} built another Ĝ "
+                                     "than rank 0")
+        topk = cgrc_mod.CGRC.topk_users
+        owner = threading.get_ident()
+
+        def replaying(self, h_u_bar, x_cold, k):
+            if threading.get_ident() != owner:
+                return topk(self, h_u_bar, x_cold, k)
+            i = stats["calls"]
+            stats["calls"] += 1
+            own = topk(self, h_u_bar, x_cold, k)
+            ids, logits = ranks[0][i]
+            theirs = torch.as_tensor(ids, device=own.device)
+            s_own = edge_scores(self, h_u_bar, x_cold, own)
+            s_theirs = edge_scores(self, h_u_bar, x_cold, theirs)
+            scale = s_own.abs().amax(1).clamp_min(torch.finfo(
+                s_own.dtype).tiny)
+            drift = float(((torch.as_tensor(logits, device=own.device)
+                            - s_theirs).abs().amax(1) / scale).max())
+            stats["drift"] = max(stats["drift"], drift)
+            shared = (theirs[:, :, None] == own[:, None, :]).any(2)
+            kept = (own[:, :, None] == theirs[:, None, :]).any(2)
+            rows = (~shared).any(1)
+            worst = 0.0
+            if bool(rows.any()):  # own users the ranks left out vs theirs
+                gap = (torch.where(kept, -math.inf, s_own).amax(1)
+                       - torch.where(shared, math.inf, s_theirs).amin(1))
+                worst = float((gap / scale)[rows].max())
+                stats["ties"] += int((~shared).sum())
+                stats["where"].append(int(rows.sum()))
+                stats["worst"] = max(stats["worst"], worst)
+            limit = 2 * max(drift, MESH_TIE_REL)
+            if drift > MESH_LOGIT_DRIFT or worst > limit:
+                raise AssertionError(
+                    f"CGRC Ĝ {i}: the ranks' top-{k} users differ from one "
+                    f"rank's on {int(rows.sum())} cold items, swapped "
+                    f"{worst:.3e} apart (a tie: <= {limit:.3e}), the two "
+                    f"runs' logits {drift:.3e} apart (limit "
+                    f"{MESH_LOGIT_DRIFT}), of the row's largest")
+            return theirs
+
+        with _swapped(cgrc_mod.CGRC, "topk_users", replaying):
+            yield stats
+    else:
+        for r in range(n_model, len(ranks)):
+            if len(ranks[r]) != len(ranks[r % n_model]) or any(
+                    not np.array_equal(a, b)
+                    for a, b in zip(ranks[r], ranks[r % n_model])):
+                raise AssertionError(f"{model}: ranks {r % n_model} and "
+                                     f"{r} hold one node block and "
+                                     "perturbed it differently")
+        planes = [np.concatenate(blocks) for blocks in zip(*ranks[:n_model])]
+        perturb = simgcl_mod.perturb
+        owner = threading.get_ident()
+
+        def replaying(ego, eps, noise):
+            if threading.get_ident() != owner:
+                return perturb(ego, eps, noise)
+            i = stats["calls"]
+            stats["calls"] += 1
+            if i >= len(planes):
+                raise AssertionError(f"{model}: more perturbed layers than "
+                                     f"the ranks' {len(planes)}")
+            ref = torch.as_tensor(planes[i][:ego.shape[0]], device=ego.device)
+            own, theirs = torch.sign(ego.detach()), torch.sign(ref)
+            diff = own != theirs
+            if not bool(diff.any()):
+                return perturb(ego, eps, noise)
+            worst = float(torch.maximum(_row_rel(ego.detach()),
+                                        _row_rel(ref))[diff].max())
+            stats["ties"] += int(diff.sum())
+            stats["where"].append(i)
+            stats["worst"] = max(stats["worst"], worst)
+            if worst > MESH_TIE_REL:
+                raise AssertionError(
+                    f"{model} perturbed layer {i}: {int(diff.sum())} "
+                    "elements took another sign than the ranks', one "
+                    f"{worst:.3e} of its row's largest |value| (a tie: <= "
+                    f"{MESH_TIE_REL})")
+            return (ego + torch.where(diff, theirs, own)
+                    * simgcl_mod._normalize(noise) * eps)
+
+        with _swapped(simgcl_mod, "perturb", replaying):
+            yield stats
+        if stats["calls"] != len(planes):
+            raise AssertionError(f"{model}: {stats['calls']} perturbed "
+                                 f"layers, the ranks recorded {len(planes)}")
+    if model == "CGRC" and stats["calls"] != len(ranks[0]):
+        raise AssertionError(f"CGRC: {stats['calls']} Ĝ top-k, the ranks "
+                             f"recorded {len(ranks[0])}")
+
+
 def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                ml="ml_synth", d=D, bs=4096, seed=0, topN=(10, 20),
-               tags="bcdef"):
-    """Phase mesh (b)-(f): each rank group started in ``pool`` as soon as
+               tags="bcdefghijk"):
+    """Phase mesh (b)-(k): each rank group started in ``pool`` as soon as
     its inputs exist ((e) and (f) once (c)'s ranks have written the MF
     bus), the one-rank runs in this process meanwhile, then each group held
-    to its one-rank run. Returns the fused_sweep launches of the ranks and
-    of the one-rank runs."""
+    to its one-rank run. The one-rank runs of SimGCL, XSimGCL and CGRC come
+    last, once their ranks have recorded their perturbed layers or Ĝ
+    (``mesh_record``), and take the ranks' side of each float32 tie
+    (``mesh_replay``), so that the two runs do not part there. Returns the
+    fused_sweep launches of the ranks and of the one-rank runs."""
     common = ["--cold_object", "item", "--epochs", "1", "--bs", str(bs),
               "--emb_size", str(d), "--lr", "0.001", "--reg", "0.0001",
               "--topN", ",".join(map(str, topN)), "--seed", str(seed),
               "--save_emb", "true", "--result_overwrite", "false",
               "--device", device.type]
-    splits = {"bx": (bx_root, bx), "ml": (ml_root, ml)}
+    splits = {"bx": (bx_root, bx), "ml": (ml_root, ml),
+              "mlc": (ml_root, "ml_cgrc")}
+    if any(MESH_RUNS[tag][1] == "mlc" for tag in tags):
+        content_split(ml_root, ml, "ml_cgrc", ML_CONTENT, seed)
 
     def flags(tag, who):
         n, split, model, mesh = MESH_RUNS[tag]
@@ -3510,21 +3867,37 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                 "--emb_dir", out, "--result_file", out + ".txt",
                 *(mesh if who == "ranks" else [])]
 
-    def start(tag):
-        n, _, model, mesh = MESH_RUNS[tag]
-        root = _arg(flags(tag, "ranks"), "--data_dir")
-        events = os.path.join(root, f"events_mesh_{tag}.jsonl")
-        return pool.submit(run_ranks, f"({tag}) {' '.join(model + mesh)}",
-                           ["cli", *flags(tag, "ranks")], n,
-                           {**env, "COLDREC_EVENT_LOG": events}, device)
+    def start(head):
+        """The rank group of ``head``'s chain: {tag: (future, run index)}."""
+        chain = [t for t in MESH_CHAINS.get(head, head) if t in tags]
+        argv, labels = ["cli"], []
+        for t in chain:
+            _, _, model, mesh = MESH_RUNS[t]
+            root = _arg(flags(t, "ranks"), "--data_dir")
+            argv += [*flags(t, "ranks"), "--events",
+                     os.path.join(root, f"events_mesh_{t}.jsonl"), "--then"]
+            labels.append(f"({t}) {' '.join(model + mesh)}")
+        future = pool.submit(run_ranks, labels, argv[:-1], MESH_RUNS[head][0],
+                             {k: v for k, v in env.items()
+                              if k != "COLDREC_EVENT_LOG"}, device)
+        return {t: (future, i) for i, t in enumerate(chain)}
 
-    futures = {tag: start(tag) for tag in tags if tag not in MESH_AFTER}
+    def replayed(tag):
+        return MESH_RUNS[tag][2][1] in REPLAYED_MODELS
+
+    chained = {t for chain in MESH_CHAINS.values() for t in chain[1:]}
+    futures = {}
+    for tag in tags:
+        if tag not in MESH_AFTER and tag not in chained:
+            futures.update(start(tag))
     one = {}
     reset_launches()
-    for tag in tags:
+    # the one-rank runs that wait for a bus, then those that wait for their
+    # ranks' records, last
+    for tag in sorted(tags, key=lambda t: (replayed(t), t in MESH_AFTER)):
         if tag not in futures:  # the bus of MESH_AFTER[tag]'s ranks
             after = MESH_AFTER[tag]
-            futures[after].result()
+            futures[after][0].result()
             bus = os.path.join(_arg(flags(after, "ranks"), "--emb_dir"),
                                f"{ml}_cold_item_MF_emb.npz")
             for waiting in tags:
@@ -3533,20 +3906,32 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                         out = _arg(flags(waiting, who), "--emb_dir")
                         os.makedirs(out, exist_ok=True)
                         shutil.copy(bus, out)
-                    futures[waiting] = start(waiting)
-        events = os.path.join(_arg(flags(tag, "one"), "--data_dir"),
-                              f"events_one_{tag}.jsonl")
+                    futures.update(start(waiting))
+        root, ds = splits[MESH_RUNS[tag][1]]
+        events = os.path.join(root, f"events_one_{tag}.jsonl")
         os.environ["COLDREC_EVENT_LOG"] = events
+        n, _, model, mesh = MESH_RUNS[tag]
+        _, det, epoch_steps, proto, _ = rank_flags(mesh)
+        replay = contextlib.nullcontext({})
+        if replayed(tag):
+            futures[tag][0].result()
+            replay = mesh_replay(model[1], [_record(os.path.join(
+                root, f"events_mesh_{tag}.jsonl.rank{r}.record.npz"),
+                model[1]) for r in range(n)],
+                int(_arg(mesh, "--mesh").split("x")[1]))
         t = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()), \
-                deterministic("--deterministic" in MESH_RUNS[tag][3]):
-            one[tag] = tmain.run(make_args(flags(tag, "one")))
+                deterministic(det), proto_on(proto), replay as ties:
+            one[tag] = tmain.run(make_args(flags(tag, "one")),
+                                 data=read_split(root, ds),
+                                 epoch_steps=epoch_steps)
+        one[tag]["ties"] = ties
         event_log().close()
         one[tag]["losses"] = [x for e in read_events(events)
                               if e["event"] == "epoch" for x in e["losses"]]
         log(f"  ({tag}) one rank: {time.perf_counter() - t:.2f} s")
     one_launches = launch_counts()["fused_sweep"]
-    lines = {tag: fut.result() for tag, fut in futures.items()}
+    lines = {tag: fut.result()[i] for tag, (fut, i) in futures.items()}
     for tag in tags:
         n, _, model, _ = MESH_RUNS[tag]
         argv = flags(tag, "ranks")
@@ -3558,9 +3943,11 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                                  f"{_result_blocks(ranks_out + '.txt')} "
                                  "result blocks, rank 0 alone should")
         name = model[1]
+        held = MESH_HELD_STEPS.get(tag)
+        events = os.path.join(root, f"events_mesh_{tag}.jsonl")
+        tied = tie_note(name, one[tag]["ties"], model)
         bus = load_embeddings(ranks_out, ds, "item", name)
         ref = load_embeddings(one_out, ds, "item", name)
-        events = os.path.join(root, f"events_mesh_{tag}.jsonl")
         losses = _rank_epochs(events, n)
         log(f"  ({tag}) rank 0's epoch:")
         log_epochs(read_events(f"{events}.rank0"))
@@ -3586,8 +3973,9 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                     f"({tag}) {name} 1x2 vs one rank: losses {loss_gap}, "
                     f"tables {table_gap}, metrics {gap}; bit-equal expected")
             lists = "bit-equal tables"
+            held = len(gaps)
         else:
-            held = MESH_HELD_STEPS.get(tag, len(gaps))
+            held = len(gaps) if held is None else held
             if gaps[:held].max() > MESH_LOSS_RTOL:
                 raise AssertionError(f"({tag}) losses part from one rank's "
                                      f"by {gaps[:held].max()} relative in "
@@ -3617,7 +4005,8 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                 f"{p['efficiency']['seconds_per_completed_epoch_mean']:.3f}"
                 for p in (payload, one[tag])) + " (one)"
             + ("; BatchNorm running statistics equal on every rank"
-               if None not in bn else ""))
+               if None not in bn else "") + tied
+            + f"; losses held over {held} steps")
     kernel_eval = [x["launches"]["fused_sweep"] for tag in MESH_KERNEL_EVAL
                    if tag in lines for x in lines[tag]]
     if device.type == "cuda" and not all(v > 0 for v in kernel_eval):
@@ -3625,6 +4014,30 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                              "unlaunched")
     return one_launches + sum(x["launches"]["fused_sweep"]
                               for ls in lines.values() for x in ls)
+
+
+def tie_note(name, ties, model) -> str:
+    """The log's account of the ties a replayed one-rank run took from its
+    ranks ("" for another model)."""
+    if name == "CGRC":
+        return (f"; Ĝ: the ranks' top-k users (every rank's the same) "
+                f"equal one rank's in {ties['calls']} evaluations but at "
+                f"{sum(ties['where'])} cold items, {ties['ties']} users "
+                f"swapped at ties (the ranks' side taken; gap "
+                f"{ties['worst']:.2e} of the row's largest logit, limit "
+                f"twice the drift, at least {2 * MESH_TIE_REL:.0e}); the "
+                f"two runs' logits at the ranks' top-k {ties['drift']:.2e} "
+                f"apart (limit {MESH_LOGIT_DRIFT:.0e})")
+    if name in SIGNED_MODELS:
+        per_step = int(_arg(model, "--layers")) * (2 if name == "SimGCL"
+                                                   else 1)
+        steps = sorted({i // per_step for i in ties["where"]})
+        return (f"; perturbed elements of another sign than the ranks' "
+                f"(ties, the ranks' side taken): {ties['ties']} in "
+                f"{len(steps)} of {ties['calls'] // per_step} steps "
+                f"{steps[:8]}, at most {ties['worst']:.2e} of the row's "
+                f"largest |value| (limit {MESH_TIE_REL:.0e})")
+    return ""
 
 
 def _payload(path) -> dict:
@@ -3654,7 +4067,7 @@ def deterministic(on: bool = True):
 
 def mesh_run(device, bx_root, ml_root, bx="bx_synth", ml="ml_synth", d=D,
              bs=4096, seed=0, topN=(10, 20), serve=MESH_SERVE):
-    """Phase mesh: (a) serving and (b)-(f) training, their rank groups side
+    """Phase mesh: (a) serving and (b)-(k) training, their rank groups side
     by side in one pool. Returns the fused_sweep launches of the phase."""
     device = torch.device(device)
     if device.type == "cuda":  # the ranks share the card with this process

@@ -36,10 +36,23 @@ so that ties keep the lowest user id, as ``lax.top_k`` does. The loss's
 draws (simulated cold items, sampled edges, extra items) come from the
 trainer's generator, or from ``loss(batch, draws=)`` (the tests hand it
 the JAX package's). Each evaluation's seconds (top-k users, the Ĝ rebuild,
-the re-propagation) go to the event log (``cgrc_eval``).
+the re-propagation) and a digest of its top-k users (``topk_sha1``: two
+runs built the same Ĝ where they agree) go to the event log
+(``cgrc_eval``).
+
+Under ``--mesh DxM`` the user table is row-sharded over the model axis and
+``item_lin`` and the edge MLP are replicated, as in the JAX package. Every
+rank propagates the whole user table (gathered, ``replicated=True``: every
+rank of the model group computes the same function) on the one-device
+operator; the draws are made whole on every rank from generators in one
+state; L_E is summed over this rank's data block of the sampled edges,
+L_R over its block of batch rows against B built from the global batch's
+positives, and both, with the L2, are additive parts summed over the data
+axis. The eval's top-k users, and so Ĝ, are the same on every rank.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Dict, Optional
 
@@ -50,8 +63,12 @@ from torch import nn
 
 from ..data.builder import SparseGraphHost
 from ..device import resolve_device
-from ..ops.losses import l2_reg_loss
-from ..ops.spmm import SparseGraph, reweighted_sym_graph, spmm
+from ..ops.losses import (
+    info_nce_from_parts, info_nce_parts, l2_from_parts, l2_parts,
+)
+from ..ops.spmm import (
+    SparseGraph, make_sym_spmm, reweighted_sym_graph, spmm,
+)
 from ..runtime.eval import stable_topk
 from ..utils.logging import event_log
 from .cold_base import ColdStartModelBase
@@ -202,7 +219,10 @@ class CGRCTrainer(ColdStartModelBase):
     seeded weights."""
 
     fused_ok = False  # the JAX package's CGRC wires its own step
-    mesh_item = "7c"  # its user table row-sharded
+    # --mesh DxM: the user table row-sharded, item_lin and the edge MLP
+    # replicated (the JAX package's _setup_mesh)
+    mesh_support = "sharded"
+    global_keys = ("pos_item",)
 
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
@@ -233,7 +253,10 @@ class CGRCTrainer(ColdStartModelBase):
         eligible = np.zeros(n_i, bool)
         eligible[np.unique(tp[:, 1])] = True
         self.eligible = torch.as_tensor(eligible, device=self.device)
-        self.full_graph = self.build_graph()
+        # the one-device operator on every rank (the JAX package builds it
+        # with make_sym_spmm too): each rank propagates the whole tables
+        self.full_graph = make_sym_spmm(self.data.norm_adj,
+                                        device=self.device)
         self.model = self.init_module(
             CGRC, init_params, user_num=n_u, content_dim=self.content_dim,
             emb_size=self.emb_size, hidden=self.hidden)
@@ -288,17 +311,20 @@ class CGRCTrainer(ColdStartModelBase):
                                        device=dev)}
 
     # ------------------------------------------------------------ losses
-    def reconstruction_loss(self, user_emb, x_all, cold_mask, edges):
-        """L_E (Eq. 6, CGRC.py:206-256): over the sampled edges of
-        simulated-cold items, the mean of -(pos logit - logsumexp of the
-        logits of the simulated-cold items the edge's user did not rate);
-        edges with no such item drop."""
+    def reconstruction_parts(self, user_emb, x_all, cold_mask, edges):
+        """L_E (Eq. 6, CGRC.py:206-256) as [sum, count]: over this rank's
+        data block of the sampled edges, those of simulated-cold items, the
+        sum of -(pos logit - logsumexp of the logits of the simulated-cold
+        items the edge's user did not rate); edges with no such item
+        drop."""
         m = self.model
-        keep = (~cold_mask[self.edge_item]).float()
+        keep = (~cold_mask[self.edge_item]).to(user_emb.dtype)
         graph = reweighted_sym_graph(self.edge_rows, self.edge_cols, keep,
                                      self.data.user_num + self.data.item_num)
         h_u_bar = self.propagate_frozen(graph, user_emb, x_all, self.Lg,
                                         cold_mask)
+        if self.n_data > 1:  # any le_max: blocks of near-equal size
+            edges = edges.tensor_split(self.n_data)[self.mesh.data_index]
         pairs = self.train_pairs[edges]
         pairs = pairs[cold_mask[pairs[:, 1]]]  # the edges of weight 1
         cols = cold_mask.nonzero().squeeze(1)  # the items any row may take
@@ -316,40 +342,46 @@ class CGRCTrainer(ColdStartModelBase):
         lse, has_valid = EdgeLogSumExp.apply(hu + b1, xi_all[cols], w2, b2,
                                              valid_fn, blk)
         w = has_valid.float()
-        return (-(pos - lse) * w).sum() / w.sum().clamp_min(1.0)
+        return torch.stack([(-(pos - lse) * w).sum(), w.sum()])
 
-    def ranking_loss(self, z_u, z_i, users, b_items, weight):
-        """L_R (Eq. 8, CGRC.py:258-287): temperature contrastive over the
-        shared item set B, whose first ``len(users)`` entries are the
-        aligned positives; rows with no unrated candidate drop."""
-        bs = users.shape[0]
-        sim = (z_u[users] @ z_i[b_items].T) / self.tau
+    def ranking_parts(self, z_u, z_i, users, b_items, offset, weight):
+        """L_R (Eq. 8, CGRC.py:258-287) as ``info_nce_parts``: temperature
+        contrastive of the batch block's users over the shared item set B,
+        whose first entries are the global batch's aligned positives (this
+        block's from ``offset``); each row's denominator runs over the
+        items of B its user did not rate, and rows with none drop."""
         not_rated = ~self.rated(users[:, None], b_items[None, :])
-        le_row = torch.logsumexp(
-            torch.where(not_rated, sim, torch.full_like(sim, NEG)), dim=1)
-        pos = torch.diagonal(sim[:, :bs])
-        w = weight * not_rated.any(dim=1)
-        return (-(pos - le_row) * w).sum() / w.sum().clamp_min(1.0)
+        return info_nce_parts(z_u[users], z_i[b_items], offset,
+                              weight * not_rated.any(dim=1), not_rated,
+                              self.tau, normalize=False)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              draws: Optional[Dict[str, torch.Tensor]] = None
              ) -> torch.Tensor:
-        m = self.model
+        """lambda_e * L_E + L_R + L2 of the global batch, from parts
+        summed over the data axis; every rank propagates the whole user
+        table (gathered from the model axis), the draws alike on every
+        rank."""
         if draws is None:
             draws = self.draw()
         x_all = self.item_x()
+        user_emb = self.full_table("user_emb")
         users, w = batch["user"].long(), batch["weight"]
-        loss_e = self.reconstruction_loss(m.user_emb, x_all,
-                                          draws["cold_mask"],
-                                          draws["edges"].long())
-        z_u, z_i = lightgcn_propagate(self.full_graph, m.user_emb, x_all,
+        loss_e = self.reconstruction_parts(user_emb, x_all,
+                                           draws["cold_mask"],
+                                           draws["edges"].long())
+        z_u, z_i = lightgcn_propagate(self.full_graph, user_emb, x_all,
                                       self.Lf)
-        b_items = torch.cat([batch["pos_item"].long(),
-                             draws["extra"].long()])
-        loss_r = self.ranking_loss(z_u, z_i, users, b_items, w)
-        reg = l2_reg_loss(self.reg, m.user_emb[users],
-                          x_all[batch["pos_item"]], weight=w)
-        return self.lambda_e * loss_e + loss_r + reg
+        positives = self.global_rows(batch, "pos_item").long()
+        b_items = torch.cat([positives, draws["extra"].long()])
+        loss_r = self.ranking_parts(z_u, z_i, users, b_items,
+                                    self.data_offset(positives.shape[0]), w)
+        reg = l2_parts(user_emb[users], x_all[batch["pos_item"]], weight=w)
+        p = self.reduce_parts(torch.cat([loss_e, loss_r, w.sum()[None],
+                                         reg]))
+        return (self.lambda_e * (p[0] / p[1].clamp_min(1.0))
+                + info_nce_from_parts(p[2:4])
+                + l2_from_parts(p[5:7], p[4].clamp_min(1.0), self.reg))
 
     # -------------------------------------------------------------- eval
     def ghat_graph(self, top_users: np.ndarray, cold: np.ndarray):
@@ -368,14 +400,17 @@ class CGRCTrainer(ColdStartModelBase):
         return SparseGraph.from_host(host, device=self.device)
 
     def forward_tables(self):
-        """Ĝ reconstruction, then LightGCN over it (CGRC.py:369-401)."""
+        """Ĝ reconstruction, then LightGCN over it (CGRC.py:369-401). Every
+        rank of a mesh computes it from the whole user table, so every
+        rank builds the same Ĝ."""
         m = self.model
         x_all = self.item_x()
+        user_emb = self.full_table("user_emb")
         cold = np.asarray(self.data.mapped_cold_item_idx)
         if cold.size == 0:
-            return lightgcn_propagate(self.full_graph, m.user_emb, x_all,
+            return lightgcn_propagate(self.full_graph, user_emb, x_all,
                                       self.Lh)
-        h_u_bar = self.propagate_frozen(self.full_graph, m.user_emb, x_all,
+        h_u_bar = self.propagate_frozen(self.full_graph, user_emb, x_all,
                                         self.Lg)
         k = min(self.topk, self.data.user_num)
         cuda = self.device.type == "cuda"
@@ -384,19 +419,20 @@ class CGRCTrainer(ColdStartModelBase):
         t1 = time.perf_counter()
         graph = self.ghat_graph(top, cold)
         t2 = time.perf_counter()
-        tables = lightgcn_propagate(graph, m.user_emb, x_all, self.Lh)
+        tables = lightgcn_propagate(graph, user_emb, x_all, self.Lh)
         if cuda:
             torch.cuda.synchronize(self.device)
         event_log().emit("cgrc_eval", topk_users_s=t1 - t0,
                          ghat_rebuild_s=t2 - t1,
                          propagate_s=time.perf_counter() - t2,
                          ghat_edges=int(graph.rows.shape[0]),
-                         cold_items=int(cold.size), k=int(k))
+                         cold_items=int(cold.size), k=int(k),
+                         topk_sha1=hashlib.sha1(top.tobytes()).hexdigest())
         return tables
 
     def extra_saved_tensors(self) -> Dict[str, torch.Tensor]:
-        m = self.model
         with torch.no_grad():
-            z_u, z_i = lightgcn_propagate(self.full_graph, m.user_emb,
+            z_u, z_i = lightgcn_propagate(self.full_graph,
+                                          self.full_table("user_emb"),
                                           self.item_x(), self.Lf)
         return {"user_emb_full": z_u, "item_emb_full": z_i}

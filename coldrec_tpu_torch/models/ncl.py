@@ -22,16 +22,21 @@ from typing import Dict, Optional
 import torch
 
 from ..ops.kmeans import kmeans
-from ..ops.losses import _normalize, bpr_loss, l2_reg_loss
-from ..ops.spmm import spmm
+from ..ops.losses import (
+    _normalize, bpr_l2_from_parts, bpr_l2_parts, info_nce_from_parts,
+    info_nce_parts,
+)
 from .lightgcn import GraphTrainer
 
 WARMUP_EPOCHS = 20  # NCL.py:103,116
 
 
-def _ssl_one_side(context, initial, initial_all, idx, w, temp):
-    c = _normalize(context[idx])
-    i = _normalize(initial[idx])
+def _ssl_one_side(context, initial, initial_all, w, temp):
+    """sum_rows -log(exp(c.i / t) / sum_all exp(c.a / t)) * w of the batch
+    rows' ``context`` and ``initial`` rows against every row of
+    ``initial_all`` (a plain weighted sum: it adds up over data blocks)."""
+    c = _normalize(context)
+    i = _normalize(initial)
     all_n = _normalize(initial_all)
     pos = torch.exp((c * i).sum(dim=1) / temp)
     ttl = torch.exp(c @ all_n.T / temp).sum(dim=1)
@@ -39,6 +44,16 @@ def _ssl_one_side(context, initial, initial_all, idx, w, temp):
 
 
 class NCLTrainer(GraphTrainer):
+    """On a mesh: the layer-SSL negatives are every user (item), so each
+    rank takes the whole layer-0 table (``ego(replicated=True)``) and its
+    batch block's context rows; ProtoNCE's anchors are this rank's data
+    block of the global batch, its columns the global batch's centroid rows
+    (``info_nce_parts``); the e-step runs k-means on the whole tables, the
+    generator in one state on every rank, so every rank holds one rank's
+    clusters."""
+
+    global_keys = ("user", "pos_item", "weight")
+
     def check_flags(self):
         a = self.args
         self.hyper_layers = int(a.hyper_layers)
@@ -56,78 +71,77 @@ class NCLTrainer(GraphTrainer):
         self._proto_on = False
 
     # ----------------------------------------------------------------- ssl
-    def layer_embs(self):
-        m = self.model
-        ego = torch.cat([m.user_emb, m.item_emb], dim=0)
-        embs = [ego]
-        for _ in range(self.n_layers):
-            ego = spmm(self.graph, ego)
-            embs.append(ego)
-        mean = sum(embs) / (self.n_layers + 1)
+    def ssl_parts(self, initial, context_rows, batch) -> torch.Tensor:
+        """[user side, item side] of the layer contrast (each a weighted
+        sum over the batch block): ``initial`` the whole layer-0 table,
+        ``context_rows`` the block's (user, pos) rows of layer
+        2 * hyper_layers."""
         nu = self.data.user_num
-        return mean[:nu], mean[nu:], embs
-
-    def ssl_layer_loss(self, embs, batch):
-        nu = self.data.user_num
-        initial = embs[0]
-        context = embs[self.hyper_layers * 2]
         w = batch["weight"]
-        lu = _ssl_one_side(context[:nu], initial[:nu], initial[:nu],
-                           batch["user"], w, self.ssl_temp)
-        li = _ssl_one_side(context[nu:], initial[nu:], initial[nu:],
-                           batch["pos_item"], w, self.ssl_temp)
-        return self.ssl_reg * (lu + self.alpha * li)
+        init_u, init_i = initial[:nu], initial[nu:]
+        cu, ci = context_rows
+        return torch.stack([
+            _ssl_one_side(cu, init_u[batch["user"].long()], init_u, w,
+                          self.ssl_temp),
+            _ssl_one_side(ci, init_i[batch["pos_item"].long()], init_i, w,
+                          self.ssl_temp)])
 
-    def proto_loss(self, embs, batch, clusters):
+    def proto_parts(self, initial, batch, clusters) -> torch.Tensor:
+        """ProtoNCE's [user, item] ``info_nce_parts``: InfoNCE(emb[idx],
+        centroid[cluster[idx]]) over the global batch (NCL.py:61-64), the
+        anchors this rank's block, pad rows left out of the mean and of the
+        negative columns."""
         uc, u2c, ic, i2c = clusters
         nu = self.data.user_num
-        initial_u, initial_i = embs[0][:nu], embs[0][nu:]
-        w = batch["weight"]
-        # InfoNCE(emb[idx], centroid[cluster[idx]]) * batch_size
-        # (NCL.py:61-64); pad rows left out of the mean and of the in-batch
-        # negative columns
-        neg_inf = torch.finfo(torch.float32).min
-
-        def one(v, c):
-            logits = (_normalize(v) @ _normalize(c).T) / self.ssl_temp
-            logits = torch.where(w[None, :] > 0, logits,
-                                 torch.full_like(logits, neg_inf))
-            lp = torch.diagonal(logits) - torch.logsumexp(logits, dim=1)
-            return -torch.where(w > 0, lp, torch.zeros_like(lp)).sum() / (
-                w.sum().clamp_min(1.0))
-
-        loss_u = one(initial_u[batch["user"]], uc[u2c[batch["user"]]])
-        loss_i = one(initial_i[batch["pos_item"]],
-                     ic[i2c[batch["pos_item"]]])
-        return self.proto_reg * (loss_u + loss_i) * self.batch_size
+        w = self.global_rows(batch, "weight")
+        off = self.data_offset(w.shape[0])
+        out = []
+        for table, cent, assign, key in ((initial[:nu], uc, u2c, "user"),
+                                         (initial[nu:], ic, i2c, "pos_item")):
+            ids = self.global_rows(batch, key).long()
+            out.append(info_nce_parts(
+                table[batch[key].long()], cent[assign[ids]], off,
+                batch["weight"], w, self.ssl_temp))
+        return torch.cat(out)
 
     def loss(self, batch: Dict[str, torch.Tensor],
              clusters: Optional[tuple] = None) -> torch.Tensor:
         """BPR + L2 + layer SSL, + ProtoNCE on ``clusters`` or, while the
         proto term is on, on the e-step's."""
-        ut, it, embs = self.layer_embs()
-        u, pos, neg, w = self.rows(batch, ut, it)
-        loss = (bpr_loss(u, pos, neg, w)
-                + l2_reg_loss(self.reg, u, pos, neg, weight=w)
-                + self.ssl_layer_loss(embs, batch))
         if clusters is None and self._proto_on:
             clusters = self.clusters
+        ego = self.ego()
+        mean, layers = self.propagate(ego=ego)
+        # the whole layer 0 (the negatives): its gradient kept per block
+        initial = self.ego(replicated=True) if self.on_mesh else ego
+        context = layers[self.hyper_layers * 2]
+        groups = self.batch_groups(batch)
+        rows = self.node_rows([mean, context], groups)
+        u, pos, neg = rows[0]
+        parts = [bpr_l2_parts(u, pos, neg, batch["weight"]),
+                 self.ssl_parts(initial, rows[1][:2], batch)]
         if clusters is not None:
-            loss = loss + self.proto_loss(embs, batch, clusters)
+            parts.append(self.proto_parts(initial, batch, clusters))
+        p = self.reduce_parts(torch.cat(parts))
+        loss = (bpr_l2_from_parts(p[:5], self.reg)
+                + self.ssl_reg * (p[5] + self.alpha * p[6]))
+        if clusters is not None:
+            loss = loss + self.proto_reg * (
+                info_nce_from_parts(p[7:9])
+                + info_nce_from_parts(p[9:11])) * self.batch_size
         return loss
 
     def forward_tables(self):
-        ut, it, _ = self.layer_embs()
-        return ut, it
+        return self.node_tables(self.propagate()[0])
 
     # --------------------------------------------------------------- e-step
     def e_step(self):
-        """k-means of the user and the item ego tables."""
-        m = self.model
-        uc, u2c = kmeans(m.user_emb.detach(), self.k,
-                         generator=self.generator)
-        ic, i2c = kmeans(m.item_emb.detach(), self.k,
-                         generator=self.generator)
+        """k-means of the user and the item ego tables (whole on every
+        rank)."""
+        with torch.no_grad():
+            tables = [self.full_table(n) for n in ("user_emb", "item_emb")]
+        uc, u2c = kmeans(tables[0].detach(), self.k, generator=self.generator)
+        ic, i2c = kmeans(tables[1].detach(), self.k, generator=self.generator)
         self.clusters = (uc, u2c, ic, i2c)
 
     def epoch_hook(self, epoch: int):

@@ -3,7 +3,9 @@ reference: model/NGCF.py).
 
 Per layer: side = Â·E; E' = LeakyReLU_0.01(W_gc(side) + W_bi(E ⊙ side));
 mean over layers 0..L (NGCF.py:90-104). Per-layer learned Linears, carried
-from the JAX package's (in, out) weights by ``jax_slots``.
+from the JAX package's (in, out) weights by ``jax_slots``. The propagation
+is ``GraphTrainer``'s with NGCF's layer as its hook; BPR + L2 (u, pos,
+neg) as additive parts, summed over the data axis of a mesh.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import bpr_loss, l2_reg_loss
-from ..ops.spmm import spmm
+from ..ops.losses import bpr_l2_from_parts, bpr_l2_parts
+from ..parallel.ops import CopyToGroup
 from .common import linear_params, linear_slots
 from .lightgcn import GraphTables, GraphTrainer
 
@@ -45,29 +47,46 @@ class NGCF(GraphTables):
         return {**GraphTables.jax_shapes(params),
                 "n_layers": len(params["W_gc"])}
 
-    def propagate(self, graph):
-        ego = torch.cat([self.user_emb, self.item_emb], dim=0)
-        acc = ego
-        for gc, bi in zip(self.W_gc, self.W_bi):
-            side = spmm(graph, ego)
-            ego = nn.functional.leaky_relu(gc(side) + bi(ego * side),
-                                           negative_slope=0.01)
-            acc = acc + ego
-        mean = acc / (len(self.W_gc) + 1)
-        n_users = self.user_emb.shape[0]
-        return mean[:n_users], mean[n_users:]
+    def layer(self, k: int, side: torch.Tensor, prev: torch.Tensor,
+              group=None) -> torch.Tensor:
+        """Layer ``k`` + 1 from ``side`` = Â ``prev``. ``group``: the
+        Linears act on this rank's node block, so their gradient is summed
+        over the group (``CopyToGroup``)."""
+        gc, bi = self.W_gc[k], self.W_bi[k]
+        if group is None:
+            return nn.functional.leaky_relu(gc(side) + bi(prev * side),
+                                            negative_slope=0.01)
+        w = [CopyToGroup.apply(p, group) for p in (gc.weight, gc.bias,
+                                                   bi.weight, bi.bias)]
+        return nn.functional.leaky_relu(
+            nn.functional.linear(side, w[0], w[1])
+            + nn.functional.linear(prev * side, w[2], w[3]),
+            negative_slope=0.01)
 
 
 class NGCFTrainer(GraphTrainer):
+    """On the mesh graph each rank runs the Linears on its node block and
+    sums their gradient over the model group, so the replicated weights
+    stay the same on every rank."""
+
     module = NGCF
 
     def module_kw(self) -> dict:
         return {"n_layers": self.n_layers}
 
+    def layer_hook(self):
+        group = self.mesh.model_group if self.on_mesh else None
+
+        def hook(k, side, prev):
+            return self.model.layer(k, side, prev, group)
+
+        return hook
+
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        u, pos, neg, w = self.rows(batch, *self.forward_tables())
-        return bpr_loss(u, pos, neg, w) + l2_reg_loss(self.reg, u, pos, neg,
-                                                      weight=w)
+        mean, _ = self.propagate(self.layer_hook())
+        u, pos, neg = self.node_rows([mean], self.batch_groups(batch))[0]
+        parts = bpr_l2_parts(u, pos, neg, batch["weight"])
+        return bpr_l2_from_parts(self.reduce_parts(parts), self.reg)
 
     def forward_tables(self):
-        return self.model.propagate(self.graph)
+        return self.node_tables(self.propagate(self.layer_hook())[0])

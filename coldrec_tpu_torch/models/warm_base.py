@@ -50,11 +50,14 @@ so each rank's Adam steps its own rows with the global batch's gradient.
 Every ``MaskedBatchNorm1d`` of the model takes the data group, so its
 statistics are the global batch's (``_sync_batchnorm``), and a draw over
 the batch is made for the global batch on every rank, each keeping its
-block (``data_block``). The eval tables are gathered whole on every rank. A
-process group with no ``--mesh`` is data-parallel over every rank, as in
-the JAX package. Only models with ``mesh_support = "sharded"`` (MF,
-LightGCN, DropoutNet) take a mesh; those whose JAX trainer never sets one
-up (``"one_device"``) ignore it; every other model refuses it. Under a
+block (``data_block``; a whole plane ``plane_rand``). A loss whose terms
+run over the global batch (an InfoNCE's columns) takes the batch's
+``global_keys`` whole as ``<key>_all`` (``global_rows``). The eval tables
+are gathered whole on every rank. A process group with no ``--mesh`` is
+data-parallel over every rank, as in the JAX package. Only models with
+``mesh_support = "sharded"`` (MF, the graph backbones, DropoutNet, CGRC)
+take a mesh; those whose JAX trainer never sets one up (``"one_device"``)
+ignore it; every other model refuses it. Under a
 group, rank 0 alone writes the bus and the train state; sharded tables and
 their Adam moments are gathered before the write and sharded again on
 resume.
@@ -128,13 +131,14 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     fused_ok = True
     current_epoch = None  # the epoch being trained, for --debug_nans
     # "sharded": the loss as partial sums and the tables through
-    # parallel.ops, so --mesh and process groups run (MF, LightGCN,
-    # DropoutNet); "one_device": --mesh ignored, as the JAX trainer never
-    # sets up its mesh; "refuse": a mesh or group raises (ROADMAP Queue 1,
-    # items 7c and 7d)
+    # parallel.ops, so --mesh and process groups run (MF, the graph
+    # backbones, DropoutNet, CGRC); "one_device": --mesh ignored, as the JAX
+    # trainer never sets up its mesh; "refuse": a mesh or group raises
+    # (ROADMAP Queue 1, item 7d)
     mesh_support = "refuse"
-    # the ROADMAP.md Queue 1 item that brings a refusing model to the mesh
-    mesh_item = "7d"
+    # batch columns the loss also takes whole under a data axis, as
+    # ``<key>_all`` (the global batch's ids of an InfoNCE's columns)
+    global_keys = ()
     mesh = None
     sharded = frozenset()  # names of the row-sharded parameters
     _mesh_done = False
@@ -178,9 +182,9 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             raise NotImplementedError(
                 f"{self.model_name} on a mesh or a process group (--mesh "
                 f"{spec or 'unset'}, {process_count()} process(es)): the port "
-                "brings the data and model axes to MF, LightGCN and "
-                f"DropoutNet only; {self.model_name} waits for ROADMAP.md "
-                f"Queue 1, item {self.mesh_item}")
+                "brings the data and model axes to MF, the graph backbones, "
+                f"DropoutNet and CGRC only; {self.model_name} waits for "
+                "ROADMAP.md Queue 1, item 7d")
         self.mesh = make_mesh(n_data, n_model)
         return self.mesh
 
@@ -220,6 +224,26 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
             return x
         return host_block(x, self.mesh.n_data, self.mesh.data_index)
 
+    def data_offset(self, n_rows: int) -> int:
+        """The first row of this rank's :meth:`data_block` of ``n_rows``."""
+        if self.n_data == 1:
+            return 0
+        return self.mesh.data_index * (n_rows // self.mesh.n_data)
+
+    def global_rows(self, batch: Dict[str, torch.Tensor], key: str):
+        """The global batch's column ``key`` (``global_keys``): whole on
+        every rank of a data axis, the batch's own column without one."""
+        return batch.get(f"{key}_all", batch[key])
+
+    def plane_rand(self, shape, dtype=torch.float32, block=None):
+        """U(0,1) of the whole ``shape`` from ``self.generator``, drawn
+        alike on every rank (the generators share one state), so the stream
+        matches one rank's draw for draw; ``block(x)`` keeps this rank's
+        part of it (the whole plane without ``block``)."""
+        x = torch.rand(shape, generator=self.generator, device=self.device,
+                       dtype=dtype)
+        return x if block is None else block(x)
+
     def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """Rows ``ids`` of the model's table ``name`` (the exchange or
         gather lookup where it is row-sharded)."""
@@ -249,8 +273,12 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
 
     def _place_batch(self, batch: Dict[str, np.ndarray]):
         """This rank's contiguous block of the host batch over the data
-        axis (``P(AXIS_DATA)``)."""
-        return {k: self.data_block(v) for k, v in batch.items()}
+        axis (``P(AXIS_DATA)``); the columns of ``global_keys`` also whole,
+        as ``<key>_all`` (every rank holds the same host batch)."""
+        out = {k: self.data_block(v) for k, v in batch.items()}
+        if self.n_data > 1:
+            out.update({f"{k}_all": batch[k] for k in self.global_keys})
+        return out
 
     def _reduce_grads(self):
         """Every gradient summed over the data group, in one all-reduce."""
@@ -571,6 +599,9 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         self.epochs_ran = (epoch + 1) if self.max_epoch > 0 else 0
         self.timer(start=False)
         self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
+        # every rank computes the extra tensors: they may gather sharded
+        # tables (CGRC's propagated tables), a collective of the group
+        extra = self.extra_saved_tensors() if self.args.save_emb else {}
         if self.args.save_emb and process_index() == 0:
             save_embeddings(
                 self.args.emb_dir,
@@ -578,7 +609,7 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
                 self.args.cold_object,
                 self.model_name,
                 {"user_emb": self.user_emb, "item_emb": self.item_emb,
-                 **self.extra_saved_tensors()},
+                 **extra},
                 fmt=getattr(self.args, "save_emb_format", "npz"),
             )
         if self.args.save_emb:

@@ -7,6 +7,12 @@ and LARA write inline there; reference ColdRec util/utils.py:25-76).
 Every batch has a fixed row count; the last batch of an epoch is padded and
 carries ``weight`` (1.0 real / 0.0 pad), so the weighted mean equals the
 reference's mean over the real rows.
+
+A batch split over the data axis of a mesh sums additive parts before the
+loss: ``bpr_l2_parts`` (BPR and the L2 terms, whose square roots do not add
+up over blocks) and ``info_nce_parts`` (an InfoNCE whose denominators run
+over every column of the global batch: a block of anchor rows scored
+against all columns adds up as (sum -log p * valid, sum valid)).
 """
 from __future__ import annotations
 
@@ -60,9 +66,12 @@ def bpr_l2_parts(
     pos_item_emb: torch.Tensor,
     neg_item_emb: torch.Tensor,
     weight: torch.Tensor,
+    l2_neg: bool = True,
 ) -> torch.Tensor:
     """The additive sums of a padded batch's BPR + L2 loss, stacked:
-    [sum w * bpr, sum w, sum (w u)^2, sum (w pos)^2, sum (w neg)^2].
+    [sum w * bpr, sum w, sum (w u)^2, sum (w pos)^2, sum (w neg)^2], the
+    last left out where ``l2_neg`` is False (SimGCL and XSimGCL regularise
+    ``u`` and ``pos`` only).
 
     Summed over the blocks of a batch split across ranks they are the whole
     batch's sums, which :func:`bpr_l2_from_parts` turns into the loss; the
@@ -71,21 +80,34 @@ def bpr_l2_parts(
     pos_score = (user_emb * pos_item_emb).sum(dim=1)
     neg_score = (user_emb * neg_item_emb).sum(dim=1)
     bpr = -torch.log(_BPR_EPS + torch.sigmoid(pos_score - neg_score))
-    w = weight.reshape(-1, 1)
-    return torch.stack([(bpr * weight).sum(), weight.sum()] + [
-        ((e * w) * (e * w)).sum()
-        for e in (user_emb, pos_item_emb, neg_item_emb)])
+    embs = (user_emb, pos_item_emb) + ((neg_item_emb,) if l2_neg else ())
+    return torch.cat([torch.stack([(bpr * weight).sum(), weight.sum()]),
+                      l2_parts(*embs, weight=weight)])
 
 
 def bpr_l2_from_parts(parts: torch.Tensor, reg: float) -> torch.Tensor:
-    """``bpr_loss + l2_reg_loss(reg, u, pos, neg)`` (both weighted) from
+    """``bpr_loss + l2_reg_loss(reg, u, pos[, neg])`` (both weighted) from
     :func:`bpr_l2_parts`, in the same operations and order, so a whole
     batch's parts give the same value."""
     denom = parts[1].clamp_min(1.0)
+    return parts[0] / denom + l2_from_parts(parts[2:], denom, reg)
+
+
+def l2_parts(*embs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """[sum (w e)^2 for each e]: the additive sums of ``l2_reg_loss``."""
+    w = weight.reshape(-1, 1)
+    weighted = [e * w for e in embs]
+    return torch.stack([(e * e).sum() for e in weighted])
+
+
+def l2_from_parts(squares: torch.Tensor, denom: torch.Tensor,
+                  reg: float) -> torch.Tensor:
+    """``l2_reg_loss`` from :func:`l2_parts` summed over the blocks and the
+    real row count ``denom`` (at least 1)."""
     total = 0.0
-    for sq in parts[2:]:
+    for sq in squares:
         total = total + sq.sqrt() / denom
-    return parts[0] / denom + total * reg
+    return total * reg
 
 
 def mse_loss(
@@ -158,3 +180,35 @@ def info_nce_masked(view1: torch.Tensor, view2: torch.Tensor,
     log_prob = torch.diagonal(logits) - torch.logsumexp(logits, dim=1)
     return -_wmean(torch.where(valid > 0, log_prob,
                                torch.zeros_like(log_prob)), valid)
+
+
+def info_nce_parts(anchors: torch.Tensor, columns: torch.Tensor,
+                   offset: int, row_valid: torch.Tensor,
+                   col_valid: torch.Tensor, temperature: float,
+                   normalize: bool = True) -> torch.Tensor:
+    """[sum -log p * row_valid, sum row_valid] of a block of anchor rows
+    against every column: row i's positive is column ``offset + i``, its
+    denominator runs over the columns ``col_valid`` admits (a (C,) mask
+    shared by the rows or an (R, C) mask of each row's own), p the softmax
+    of ``anchors @ columns.T / temperature`` (rows and columns L2
+    normalized first unless ``normalize`` is False).
+
+    The blocks of a global batch's anchors, each with its offset, sum to
+    the parts of the whole, and :func:`info_nce_from_parts` of the whole's
+    parts is ``info_nce_masked(anchors, columns, valid, temperature)`` at
+    ``offset`` 0 with ``row_valid`` = ``col_valid`` = ``valid``."""
+    if normalize:
+        anchors, columns = _normalize(anchors), _normalize(columns)
+    logits = (anchors @ columns.T) / temperature
+    mask = col_valid if col_valid.dim() == 2 else col_valid[None, :]
+    neg_inf = torch.finfo(logits.dtype).min
+    masked = torch.where(mask > 0, logits, torch.full_like(logits, neg_inf))
+    log_prob = torch.diagonal(logits, offset) - torch.logsumexp(masked, dim=1)
+    kept = torch.where(row_valid > 0, log_prob, torch.zeros_like(log_prob))
+    return torch.stack([-(kept * row_valid).sum(), row_valid.sum()])
+
+
+def info_nce_from_parts(parts: torch.Tensor) -> torch.Tensor:
+    """The mean over the valid rows from :func:`info_nce_parts` (summed
+    over the blocks)."""
+    return parts[0] / parts[1].clamp_min(1.0)

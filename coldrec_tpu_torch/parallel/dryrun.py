@@ -27,11 +27,19 @@ and by this process alone (no group), and held against each other:
     ``TOL`` (bit-equal where D = 1);
   * ``resume``: the same run resumed to epoch 2 from the checkpoint, its bus
     tables row-sharded again (each rank ``1 / M`` of the rows), its eval
-    tables within ``TOL`` of one rank's resumed run.
+    tables within ``TOL`` of one rank's resumed run;
+  * ``cgrc``: one CGRC epoch (bs 256) on the item-cold split with its
+    content, the user table row-sharded over the model axis, every
+    propagation on the gathered table (the JAX dry run's phase 3): test
+    metrics finite, the local user table ``1 / M`` of the rows, the eval
+    tables within ``TOL`` of one rank's;
+  * ``xsimgcl``: one XSimGCL epoch (2 layers, bs 256): its noise drawn as
+    the whole plane on every rank, its InfoNCE over the global batch, the
+    sharded SpMM where M > 1; the user and item tables row-sharded, the
+    losses and eval tables within ``TOL`` of one rank's.
 
 Prints one JSON line with each phase's result and exits non-zero on any
-failed rank or check. The CGRC phase of the JAX dry run waits for
-ROADMAP.md Queue 1, item 7c.
+failed rank or check.
 """
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ from .distributed import (
 )
 
 TOL = 1e-5  # LightGCN, and MF over a data axis: sums in another order
-PHASES = ("mf", "lightgcn", "serve", "bus", "dropoutnet", "resume")
+PHASES = ("mf", "lightgcn", "serve", "bus", "dropoutnet", "resume", "cgrc",
+          "xsimgcl")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -128,6 +137,31 @@ def _bus_and_dropoutnet(spec: str, device: str, work: str) -> dict:
     return out
 
 
+def _epoch(model: str, spec: str, device: str, **kw) -> dict:
+    """One epoch of ``model`` under mesh ``spec`` (bs 256): its per-batch
+    losses, eval tables, overall test metrics and local table heights."""
+    from ..config import default_args
+    from ..data.synthetic import synthetic_dataset
+    from ..models import model_factory
+    from ..runtime.trainer import Config
+
+    data, _ = synthetic_dataset(n_users=96, n_items=80, n_inter=1800,
+                                cold_object="item", seed=91)
+    trainer = model_factory(Config(default_args(
+        model=model, dataset="synth", epochs=1, bs=256, emb_size=16, seed=5,
+        save_emb=False, early_stop=2, mesh=spec, device=device, **kw),
+        data))
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer.run()
+    m = trainer.model
+    return {"losses": np.asarray(trainer.epoch_stats[0]["losses"]),
+            "user_emb": trainer.user_emb.cpu().numpy(),
+            "item_emb": trainer.item_emb.cpu().numpy(),
+            "metrics": np.asarray(trainer.overall_test_results, float),
+            "table_rows": np.asarray([m.user_emb.shape[0]] + (
+                [m.item_emb.shape[0]] if hasattr(m, "item_emb") else []))}
+
+
 def _serve(spec: str, device: str) -> dict:
     from ..ops.cuda.retrieval import fused_sweep
     from ..runtime.serving import RetrievalServer
@@ -152,7 +186,10 @@ def phases(spec: str, device: str, work: Optional[str] = None) -> dict:
     out = {}
     for name, res in (("mf", _step("MF", spec, device)),
                       ("lightgcn", _step("LightGCN", spec, device, layers=2)),
-                      ("serve", _serve(spec, device))):
+                      ("serve", _serve(spec, device)),
+                      ("cgrc", _epoch("CGRC", spec, device)),
+                      ("xsimgcl", _epoch("XSimGCL", spec, device,
+                                         layers=2))):
         out.update({f"{name}/{k}": v for k, v in res.items()})
     with contextlib.ExitStack() as stack:
         if work is None:
@@ -179,6 +216,16 @@ def compare(ranks: dict, one: dict, n_data: int, n_model: int,
     resume_gap = gap("resume", tables + ("bn",))
     rows = one["resume/table_rows"] // n_model
     sharded = bool(np.array_equal(ranks["resume/table_rows"], rows))
+    epochs = {}
+    for phase in ("cgrc", "xsimgcl"):
+        err = gap(phase, ("losses",) + tables)
+        rows_ok = bool(np.array_equal(ranks[f"{phase}/table_rows"],
+                                      one[f"{phase}/table_rows"] // n_model))
+        finite = bool(np.isfinite(ranks[f"{phase}/metrics"]).all())
+        epochs[phase] = {"ok": err <= TOL and rows_ok and finite,
+                         "max_abs_err": err, "finite_metrics": finite,
+                         "sharded_rows":
+                         ranks[f"{phase}/table_rows"].tolist()}
     return {
         "bus": {"ok": bus_gap == 0.0 if n_data == 1 else bus_gap <= TOL,
                 "max_abs_err": bus_gap},
@@ -195,6 +242,7 @@ def compare(ranks: dict, one: dict, n_data: int, n_model: int,
                   "ids_equal": ids_equal, "fused_sweep_launches": launches,
                   "max_abs_err": float(np.abs(ranks["serve/vals"]
                                               - one["serve/vals"]).max())},
+        **epochs,
     }
 
 
@@ -226,6 +274,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         env = {**os.environ, "PYTHONPATH": os.pathsep.join(
             [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        # the ranks share the host's cores
+        env.setdefault("OMP_NUM_THREADS",
+                       str(max(1, (os.cpu_count() or 1) // a.ranks)))
         runs = launch_ranks(
             [sys.executable, "-m", "coldrec_tpu_torch.parallel.dryrun",
              "--device", a.device, "--child", tmp], a.ranks,

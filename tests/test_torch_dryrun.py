@@ -6,7 +6,9 @@ is no data axis (1x2) and within ``dryrun.TOL`` with one, LightGCN within
 DropoutNet epoch on it (BatchNorm over the global batch, a train state
 checkpoint) and its resume to epoch 2 bit-equal to one rank at 1x2 and
 within ``dryrun.TOL`` at 2x2, the resumed bus tables row-sharded again;
-every rank's results the same."""
+one CGRC epoch (the user table row-sharded, the JAX dry run's phase 3) and
+one XSimGCL epoch (both tables row-sharded) within ``dryrun.TOL`` of one
+rank's, their test metrics finite; every rank's results the same."""
 import json
 import os
 import subprocess
@@ -57,3 +59,15 @@ def test_dryrun_dropoutnet_phases_match_one_rank(verdicts, n, mesh):
     if mesh == "1x2":
         assert v["dropoutnet"]["bit_equal"]
         assert v["bus"]["max_abs_err"] == v["resume"]["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("n,mesh", [(2, "1x2"), (4, "2x2")])
+def test_dryrun_graph_phases_match_one_rank(verdicts, n, mesh):
+    """The JAX dry run's phase 3 (CGRC on the mesh) and an XSimGCL epoch:
+    the tables row-sharded over the model axis of 2 (96 users, 80 items),
+    the metrics finite, losses and eval tables within ``dryrun.TOL``."""
+    v = verdicts[n]
+    for phase, rows in (("cgrc", [48]), ("xsimgcl", [48, 40])):
+        assert v[phase]["ok"], v[phase]
+        assert v[phase]["finite_metrics"]
+        assert v[phase]["sharded_rows"] == rows

@@ -6,8 +6,14 @@ localhost, (a) a 1x2 mesh server id-equal to one rank's, (b) MF ``--mesh
 LightGCN ``--mesh 2x2`` on 4 ranks within their tolerances, then on (c)'s
 bus (e) DropoutNet ``--mesh 1x2`` bit-equal to one rank and (f) DropoutNet
 ``--mesh 2x2`` within its tolerances, its BatchNorm running statistics
-equal on every rank; every rank's backend and device logged, rank 0 the
-only writer."""
+equal on every rank; (g) XSimGCL ``--mesh 2x2``, (h) SimGCL ``--mesh 1x2``,
+(i) NGCF ``2x2``, (j) NCL ``2x2`` with its proto term and e-step on, and (k)
+CGRC ``2x2`` on the split with 206 item columns, each trained for
+``MESH_STEPS`` batches (all of the tiny split's) and held to its one-rank
+run, (h) in (b)'s ranks and (g), (i)-(k) in (d)'s; the one-rank runs of
+(g), (h) and (k) replay their ranks' records (the perturbed elements' signs,
+Ĝ's top-k users) and account for every difference as a tie; every rank's
+backend and device logged, rank 0 the only writer."""
 from test_torch_imports import _run_blocked
 from test_torch_threads import torch_threads  # noqa: F401
 
@@ -39,5 +45,20 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu_without_jax(tmp_path):
                  "(e) 2 ranks vs one: losses 0.000e+00",
                  "(f) 4 ranks vs one", "(f) --model DropoutNet --mesh 2x2",
                  "BatchNorm running statistics equal on every rank",
+                 "(g) --model XSimGCL --layers 2 --mesh 2x2 --deterministic "
+                 "--epoch_steps 10",
+                 "(h) --model SimGCL --layers 2 --mesh 1x2 --deterministic",
+                 "(i) --model NGCF --layers 2 --mesh 2x2",
+                 "(j) --model NCL --layers 2 --mesh 2x2 --deterministic "
+                 "--epoch_steps 10 --ncl_proto",
+                 "(k) --model CGRC --mesh 2x2",
+                 "(g) 4 ranks vs one", "(h) 2 ranks vs one",
+                 "(i) 4 ranks vs one", "(j) 4 ranks vs one",
+                 "(k) 4 ranks vs one", "perturbed elements of another sign "
+                 "than the ranks' (ties, the ranks' side taken): ",
+                 "Ĝ: the ranks' top-k users (every rank's the same) equal "
+                 "one rank's in ",
+                 "(h) --model SimGCL --layers 2 --mesh 1x2 --deterministic "
+                 "--epoch_steps 10: 2 ranks (run 2 of 2 in the group)",
                  "rank 3 on cpu"):
         assert line in proc.stdout, line

@@ -4,11 +4,13 @@ its BatchNorm statistics and masks over the global batch) against one rank,
 in float64, where summation order moves a loss by float64's rounding only.
 
 Held: every loss within FLOAT64_RTOL relative of one rank's, the running
-statistics within FLOAT64_ATOL, the test metrics equal; the trainer carries
-no float32 weight after ``as_float64`` and its eval tables are float32 (the
-retrieval kernel's type).
+statistics within FLOAT64_ATOL, the test metrics equal; the same of
+XSimGCL on 4 ranks (``2x2``, ``--model``); the trainer carries no float32
+weight after ``as_float64`` and its eval tables are float32 (the retrieval
+kernel's type).
 """
 import numpy as np
+import pytest
 import torch
 
 from coldrec_tpu_torch.config import make_args
@@ -33,6 +35,24 @@ def test_float64_data_axis_matches_one_rank(tmp_path):
     assert res["steps"] == 16
     assert max(res["loss_rel_gap_up_to"].values()) <= FLOAT64_RTOL, res
     assert res["bn_abs_gap"] <= FLOAT64_ATOL, res
+    assert res["metrics_abs_gap"] == 0.0, res
+
+
+@pytest.mark.parametrize("model", ["XSimGCL"])
+def test_float64_graph_model_2x2_matches_one_rank(tmp_path, model):
+    """``--model``: the sign-taking noise of XSimGCL on a 2x2 mesh (sharded
+    SpMM, global InfoNCE) against one rank in float64 on the same split:
+    no element near 0 flips at float64's rounding, so the runs stay
+    together."""
+    cfg = mesh_drift.CONFIGS["bus"]
+    root = str(tmp_path)
+    flags, *_ = mesh_drift.MODELS[model]
+    mesh_drift.write_inputs(cfg, root, "cpu", bus=False)
+    argv = mesh_drift.cli_flags(model, root, cfg["flags"] + flags, "cpu")
+    res = mesh_drift.drift(argv, "2x2", ["float64"], root,
+                           timeout=240)["float64"]
+    assert res["steps"] == 16
+    assert max(res["loss_rel_gap_up_to"].values()) <= FLOAT64_RTOL, res
     assert res["metrics_abs_gap"] == 0.0, res
 
 

@@ -265,22 +265,20 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,mesh,error", [
-    ("NGCF", "2x1", NotImplementedError),  # not on the data axis yet
+    ("CLCRec", "2x1", NotImplementedError),  # not on the data axis yet
     ("KNN", "1x2", NotImplementedError),
     ("MTPR", "2x1", None),  # JAX's MTPR never sets up a mesh: one device
     ("LightGCN", "1x1", None),  # a 1x1 mesh is the single-device path
 ])
 def test_mesh_by_model(datasets, model, mesh, error):
     """``--mesh`` for the models off the data and model axes: refused with
-    the ROADMAP item that brings them (7c for the graph backbones and CGRC,
-    7d for the other models), or ignored as the JAX package's trainer
-    ignores it."""
+    the ROADMAP item that brings them (7d), or ignored as the JAX package's
+    trainer ignores it."""
     _, td = datasets
     args = default_args(**{**COMMON, "device": "cpu", "epochs": 1,
                            "model": model, "mesh": mesh, "layers": 1})
     if error is not None:
-        item = "7c" if model == "NGCF" else "7d"
-        with pytest.raises(error, match=f"Queue 1, item {item}$"):
+        with pytest.raises(error, match="Queue 1, item 7d$"):
             model_factory(Config(args, td))
         return
     trainer = model_factory(Config(args, td))

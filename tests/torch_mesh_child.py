@@ -1,12 +1,15 @@
-"""A rank of ``tests/test_torch_mesh_train.py`` and
-``tests/test_torch_mesh_dropoutnet.py``: runs each job of a JSON spec (a
+"""A rank of ``tests/test_torch_mesh_train.py``,
+``tests/test_torch_mesh_dropoutnet.py``, ``tests/test_torch_mesh_graph.py``
+and ``tests/test_torch_mesh_cgrc.py``: runs each job of a JSON spec (a
 model and its flags) on the process group the ``COLDREC_*`` variables
 configure, on the CPU, and writes what each run leaves (:func:`summary`) to
 ``<out>/<job>_rank<r>.npz``. A job named ``syncbn...`` runs
-:func:`syncbn` instead. Imports no JAX.
+:func:`syncbn` instead, one named ``step...`` :func:`one_step`. Imports no
+JAX.
 
     python tests/torch_mesh_child.py SPEC.json
 """
+import contextlib
 import json
 import pickle
 import sys
@@ -17,10 +20,11 @@ import torch
 from coldrec_tpu_torch.config import default_args
 from coldrec_tpu_torch.data.synthetic import synthetic_dataset
 from coldrec_tpu_torch.models import TRAINERS, model_factory
+from coldrec_tpu_torch.models import ncl as ncl_mod
 from coldrec_tpu_torch.models.common import MaskedBatchNorm1d
 from coldrec_tpu_torch.models.mf import MFTrainer
 from coldrec_tpu_torch.parallel.distributed import (
-    host_block, init_distributed, process_count, process_index,
+    host_block, init_distributed, localize, process_count, process_index,
     shutdown_distributed,
 )
 from coldrec_tpu_torch.parallel.mesh import make_mesh
@@ -34,8 +38,23 @@ def summary(m) -> dict:
     """A finished run's eval tables, per-batch losses, test metrics, overall
     test lists and the shapes of its (local) parameters; for DropoutNet
     also its bus tables gathered whole, its tower weights, its BatchNorm
-    running statistics and the global masks it drew."""
+    running statistics and the global masks it drew; for NGCF its Linears,
+    for NCL its last clusters; for CGRC its replicated weights but the edge
+    MLP's output bias (exact gradient 0: Adam walks it on rounding
+    noise)."""
     out = {}
+    if hasattr(m.model, "edge_mlp"):
+        out["weights"] = np.concatenate([
+            p.detach().numpy().reshape(-1)
+            for n, p in m.model.named_parameters()
+            if n not in ("user_emb", "edge_mlp.1.bias")])
+    if hasattr(m.model, "W_gc"):
+        out["linears"] = torch.cat([p.detach().reshape(-1) for n, p in
+                                    m.model.named_parameters()
+                                    if n.startswith("W_")]).numpy()
+    if getattr(m, "clusters", None) is not None:
+        out["centroids"] = torch.cat([m.clusters[0], m.clusters[2]]).numpy()
+        out["assign"] = torch.cat([m.clusters[1], m.clusters[3]]).numpy()
     if hasattr(m, "drawn"):
         bns = [b for b in m.model.modules() if isinstance(b, MaskedBatchNorm1d)]
         with torch.no_grad():
@@ -69,24 +88,55 @@ def summary(m) -> dict:
     }
 
 
-def run(data, common: dict, kw: dict, init=None):
-    """One run of ``kw["model"]`` on ``data`` (MF from ``init``). DropoutNet
-    records the global masks it draws (``drawn``); ``kw["jax_init"]``, a
-    pickle of the JAX trainer's (params, net_state), carries its weights
-    and ``kw["masks"]``, an npz of the JAX run's (steps, 2, n) masks,
-    replaces its draws."""
+def trainer(data, common: dict, kw: dict, init=None):
+    """The trainer of ``kw["model"]`` on ``data`` (MF from ``init``);
+    ``kw["jax_init"]``, a pickle of the JAX trainer's (params, net_state),
+    carries its weights."""
     kw = dict(kw)
-    jax_init, masks = kw.pop("jax_init", None), kw.pop("masks", None)
+    jax_init = kw.pop("jax_init", None)
     args = default_args(**{**common, "device": "cpu", **kw})
     if kw["model"] == "MF":
-        m = MFTrainer(Config(args, data), init_params=init)
-    elif jax_init:
+        return MFTrainer(Config(args, data), init_params=init)
+    if jax_init:
         with open(jax_init, "rb") as f:
             params, state = pickle.load(f)
-        m = TRAINERS[kw["model"]](Config(args, data), init_params=params,
-                                  init_state=state)
-    else:
-        m = model_factory(Config(args, data))
+        extra = {} if state is None else {"init_state": state}
+        return TRAINERS[kw["model"]](Config(args, data), init_params=params,
+                                     **extra)
+    return model_factory(Config(args, data))
+
+
+@contextlib.contextmanager
+def proto_from(epoch):
+    """NCL's proto term (and its e-step) on from ``epoch`` (its warm-up of
+    ``WARMUP_EPOCHS`` as it is with None)."""
+    was = ncl_mod.WARMUP_EPOCHS
+    if epoch is not None:
+        ncl_mod.WARMUP_EPOCHS = epoch
+    try:
+        yield
+    finally:
+        ncl_mod.WARMUP_EPOCHS = was
+
+
+def run(data, common: dict, kw: dict, init=None):
+    """One run of ``kw["model"]`` on ``data`` (:func:`trainer`). DropoutNet
+    records the global masks it draws (``drawn``); ``kw["masks"]``, an npz
+    of the JAX run's (steps, 2, n) masks, replaces its draws. NCL:
+    ``kw["proto_from"]`` turns its proto term and e-step on from that
+    epoch; ``kw["clusters"]``, an npz of (user centroids, user -> cluster,
+    item centroids, item -> cluster), holds the proto term on with those
+    clusters and no e-step."""
+    kw = dict(kw)
+    masks, clusters = kw.pop("masks", None), kw.pop("clusters", None)
+    epoch = kw.pop("proto_from", None)
+    m = trainer(data, common, kw, init)
+    if clusters:
+        c = np.load(clusters)
+        m.clusters = tuple(torch.from_numpy(c[k]) for k in
+                           ("uc", "u2c", "ic", "i2c"))
+        m._proto_on = True
+        m.epoch_hook = lambda epoch: None
     if kw["model"] == "DropoutNet":
         draw, m.drawn = m.draw_masks, []
         queue = list(np.load(masks)["masks"]) if masks else None
@@ -98,8 +148,32 @@ def run(data, common: dict, kw: dict, init=None):
             return out
 
         m.draw_masks = recorded
-    m.run()
+    with proto_from(epoch):
+        m.run()
     return m
+
+
+def one_step(data, common: dict, kw: dict) -> dict:
+    """The loss of one batch (``kw["batch"]``, an npz of the global host
+    batch) with the noise of ``kw["noise"]`` (an npz whose keys are the
+    loss's keyword arguments) injected, and the gradient of every parameter
+    after the sum over the data axis, the sharded tables gathered whole."""
+    kw = dict(kw)
+    batch, noise = dict(np.load(kw.pop("batch"))), np.load(kw.pop("noise"))
+    m = trainer(data, common, kw)
+    extra = {k: torch.from_numpy(noise[k]) for k in noise.files}
+    if "noise_pair" in extra:
+        extra["noise_pair"] = tuple(extra["noise_pair"])
+    loss = m.loss(m.upload(batch), **extra)
+    loss.backward()
+    m._reduce_grads()
+    out = {"loss": loss.detach().numpy()}
+    for name, p in m.model.named_parameters():
+        g = p.grad
+        if name in m.sharded:
+            g = localize(g, m.mesh.model_group)
+        out[f"grad/{name}"] = g.numpy()
+    return out
 
 
 def syncbn_case(seed: int = 0):
@@ -142,6 +216,8 @@ def main(spec_path: str) -> None:
         if name.startswith("syncbn"):
             mesh = make_mesh(process_count(), 1)
             res = syncbn((mesh.n_data, mesh.data_index), mesh.data_group)
+        elif name.startswith("step"):
+            res = one_step(data, spec["common"], kw)
         else:
             res = summary(run(data, spec["common"], kw, init))
         np.savez(f"{spec['out']}/{name}_rank{process_index()}.npz", **res)
