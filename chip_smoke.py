@@ -282,9 +282,19 @@ Phases, each printed with its seconds:
               (``mesh_replay``): anything else fails the phase, and the
               two runs do not part at a tie (float64: ``mesh_drift
               --model``).
-              (h) runs in (b)'s ranks after it, (g), (i), (j), (k) in
-              (d)'s after it (``MESH_CHAINS``: one start-up and fewer
-              processes sharing the card), each run with its own stats;
+              Then the eleven cold models, each ``MESH_STEPS`` batches
+              of one epoch on ``ml_synth`` with ``ML_CONTENT`` item
+              columns, deterministic, kernel eval: ``--mesh 1x2`` held
+              bit for bit as (b): (l) DUIF, (m) KNN (2-layer LightGCN
+              encoder), (n) LARA, (o) DeepMusic, (p) Heater;
+              ``--mesh 2x2`` held as (c): (q) GAR, (r) CLCRec, (s)
+              CCFCRec, (t) AGNN, (u) MetaEmbedding, (v) GoRec (its
+              BatchNorm statistics over the global batch, every rank's
+              equal); (n)-(q) and (t)-(v) on (c)'s MF bus.
+              (h), (l), (m) run in (b)'s ranks after it, (g), (i), (j),
+              (k), (r), (s) in (d)'s, (n)-(p) in (e)'s and (q), (t)-(v)
+              in (f)'s (``MESH_CHAINS``: one start-up and fewer processes
+              sharing the card), each run with its own stats;
   8. timing   CUDA-event times of one sweep of every kernel (2048 users, and
               the 512-user serving request for the sweep, its bf16 instance
               and the merge): the kernel, its plain version and one library
@@ -3587,7 +3597,7 @@ def mesh_serve(device, root, ds, env, pool, d=D, seed=0, serve=MESH_SERVE):
     return finish
 
 
-MESH_STEPS = 10  # batches of (g)-(k)'s one epoch
+MESH_STEPS = 10  # batches of (g)-(v)'s one epoch
 MESH_RUNS = {  # tag: (ranks, "bx", "ml" or "mlc" split, model flags, mesh
     # flags: the ranks' own, and rank_flags' switches for both runs)
     # "--deterministic": deterministic algorithms in the ranks and in the
@@ -3620,23 +3630,45 @@ MESH_RUNS = {  # tag: (ranks, "bx", "ml" or "mlc" split, model flags, mesh
           ["--mesh", "2x2", "--deterministic", "--epoch_steps",
            str(MESH_STEPS)]),
 }
+# the cold models, MESH_STEPS batches of one epoch each on "mlc": tag ->
+# (model flags, mesh)
+MESH_COLD = {
+    "l": (["--model", "DUIF"], "1x2"),
+    "m": (["--model", "KNN", "--backbone", "LightGCN", "--layers", "2"],
+          "1x2"),
+    "n": (["--model", "LARA"], "1x2"),
+    "o": (["--model", "DeepMusic"], "1x2"),
+    "p": (["--model", "Heater"], "1x2"),
+    "q": (["--model", "GAR"], "2x2"),
+    "r": (["--model", "CLCRec"], "2x2"),
+    "s": (["--model", "CCFCRec"], "2x2"),
+    "t": (["--model", "AGNN"], "2x2"),
+    "u": (["--model", "MetaEmbedding"], "2x2"),
+    "v": (["--model", "GoRec"], "2x2"),
+}
+MESH_RUNS.update({
+    tag: (2 if mesh == "1x2" else 4, "mlc", model,
+          ["--mesh", mesh, "--deterministic", "--epoch_steps",
+           str(MESH_STEPS)])
+    for tag, (model, mesh) in MESH_COLD.items()})
 SIGNED_MODELS = ("SimGCL", "XSimGCL")  # their noise takes each sign
 # the models whose one-rank run takes its ranks' side of each float32 tie
 # (``mesh_replay``; deterministic: every data rank computes the same forward)
 REPLAYED_MODELS = SIGNED_MODELS + ("CGRC",)
 # these ranks (and their one-rank runs) start once the ranks of the tag they
-# name have written its MF bus
-MESH_AFTER = {"e": "c", "f": "c"}
+# name have written its MF bus (a chained tag: its chain's ranks)
+MESH_AFTER = {t: "c" for t in "efnopqtuv"}
 # rank groups that run several tags one after another in the same processes
-# (one start-up, fewer processes sharing the card): the first tag's ranks
-MESH_CHAINS = {"b": "bh", "d": "dgijk"}
-MESH_BIT_EQUAL = "be"
+# (one start-up, fewer processes sharing the card): the first tag's ranks;
+# the cold models that read no bus join the groups that start at once
+MESH_CHAINS = {"b": "bhlm", "d": "dgijkrs", "e": "enop", "f": "fqtuv"}
+MESH_BIT_EQUAL = "belmnop"
 # (f)'s float32 losses part from one rank's after ~50 steps, on the CPU as on
 # the card, and so do float32's from float64's (PERF.md §6; in float64 they
 # stay within 1e-12: ``tools/mesh_drift.py``): its first STEP_CHECK losses
 # are held, its eval tables and its metrics after the epoch
 MESH_HELD_STEPS = {"f": STEP_CHECK}
-MESH_KERNEL_EVAL = "bdefghijk"  # every rank of these launches fused_sweep
+MESH_KERNEL_EVAL = "bdefghijklmnopqrstuv"  # every rank launches fused_sweep
 
 
 def _arg(argv, flag: str) -> str:
@@ -3840,11 +3872,11 @@ def mesh_replay(model, ranks, n_model):
 
 def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
                ml="ml_synth", d=D, bs=4096, seed=0, topN=(10, 20),
-               tags="bcdefghijk"):
-    """Phase mesh (b)-(k): each rank group started in ``pool`` as soon as
-    its inputs exist ((e) and (f) once (c)'s ranks have written the MF
-    bus), the one-rank runs in this process meanwhile, then each group held
-    to its one-rank run. The one-rank runs of SimGCL, XSimGCL and CGRC come
+               tags="bcdefghijklmnopqrstuv"):
+    """Phase mesh (b)-(v): each rank group started in ``pool`` as soon as
+    its inputs exist (those of ``MESH_AFTER`` once (c)'s ranks have written
+    the MF bus), the one-rank runs in this process meanwhile, then each
+    group held to its one-rank run. The one-rank runs of SimGCL, XSimGCL and CGRC come
     last, once their ranks have recorded their perturbed layers or Ĝ
     (``mesh_record``), and take the ranks' side of each float32 tie
     (``mesh_replay``), so that the two runs do not part there. Returns the
@@ -3900,13 +3932,18 @@ def mesh_train(device, bx_root, ml_root, env, pool, bx="bx_synth",
             futures[after][0].result()
             bus = os.path.join(_arg(flags(after, "ranks"), "--emb_dir"),
                                f"{ml}_cold_item_MF_emb.npz")
-            for waiting in tags:
-                if MESH_AFTER.get(waiting) == after and waiting not in futures:
-                    for who in ("ranks", "one"):
-                        out = _arg(flags(waiting, who), "--emb_dir")
-                        os.makedirs(out, exist_ok=True)
-                        shutil.copy(bus, out)
-                    futures.update(start(waiting))
+            waiting = [t for t in tags if MESH_AFTER.get(t) == after
+                       and t not in futures]
+            for t in waiting:  # under its split's name: the ids are one
+                ds = splits[MESH_RUNS[t][1]][1]
+                for who in ("ranks", "one"):
+                    out = _arg(flags(t, who), "--emb_dir")
+                    os.makedirs(out, exist_ok=True)
+                    shutil.copy(bus, os.path.join(
+                        out, f"{ds}_cold_item_MF_emb.npz"))
+            for t in waiting:
+                if t not in chained:
+                    futures.update(start(t))
         root, ds = splits[MESH_RUNS[tag][1]]
         events = os.path.join(root, f"events_one_{tag}.jsonl")
         os.environ["COLDREC_EVENT_LOG"] = events
@@ -4067,7 +4104,7 @@ def deterministic(on: bool = True):
 
 def mesh_run(device, bx_root, ml_root, bx="bx_synth", ml="ml_synth", d=D,
              bs=4096, seed=0, topN=(10, 20), serve=MESH_SERVE):
-    """Phase mesh: (a) serving and (b)-(k) training, their rank groups side
+    """Phase mesh: (a) serving and (b)-(v) training, their rank groups side
     by side in one pool. Returns the fused_sweep launches of the phase."""
     device = torch.device(device)
     if device.type == "cuda":  # the ranks share the card with this process

@@ -15,6 +15,14 @@ the card the retrieval kernel, at the content's width). The loss's draws
 (four dropout masks and the VAE's normal) come from the trainer's
 generator, or from ``loss(batch, draws=)`` (the tests hand it the JAX
 package's).
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis (the JAX
+rule, also while they take no gradient). ``gcn_embed`` reads each batch
+side's own rows and its neighbours' (B * K) through one lookup of the
+stacked ids, the eval on the tables gathered whole. Every rank draws the
+masks and the normal for the global batch and keeps its block, and the
+loss's parts (``bpr_parts``, ``wmean_parts``, ``l2_parts``) are summed
+over the data group.
 """
 from __future__ import annotations
 
@@ -27,7 +35,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.knn import knn_cosine
-from ..ops.losses import bpr_loss, l2_reg_loss, mse_loss
+from ..ops.losses import (
+    bpr_parts, l2_from_parts, l2_parts, wmean_from_parts, wmean_parts,
+)
 from .cold_base import ColdStartModelBase
 from .common import (
     JaxCarried, linear_params, linear_slots, table_param, xavier_uniform,
@@ -134,6 +144,8 @@ class AGNNTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded weights and the bus tables."""
 
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         d = self.emb_size
@@ -190,11 +202,12 @@ class AGNNTrainer(ColdStartModelBase):
         return {"masks": masks, "normal": normal}
 
     # ---------------------------------------------------------- encoders
-    def semantic_x(self, idx, is_user: bool, mask=None):
+    def semantic_x(self, idx, is_user: bool, own, mask=None):
+        """The content encoding of ``idx``; a side without content encodes
+        its table rows ``own``."""
         m = self.model
         content = self.user_content if is_user else self.item_content
-        table = m.user_emb if is_user else m.item_emb
-        feat = content[idx] if content is not None else table[idx]
+        feat = content[idx] if content is not None else own
         enc = m.enc_user if is_user else m.enc_item
         h = torch.relu(enc[0](feat))
         if mask is not None and self.drop > 0.0:
@@ -202,13 +215,21 @@ class AGNNTrainer(ColdStartModelBase):
             h = torch.where(mask, h / keep, torch.zeros_like(h))
         return enc[1](h)
 
-    def gcn_embed(self, idx, is_user: bool, mask=None):
+    def gcn_embed(self, idx, is_user: bool, mask=None, table=None):
+        """The gated embedding of ``idx``. Its own table rows and its
+        neighbours' come from ``table`` (whole) or, without one, from one
+        lookup of the stacked ids."""
         m = self.model
-        x = self.semantic_x(idx, is_user, mask)
-        table = m.user_emb if is_user else m.item_emb
-        knn = self.knn_user if is_user else self.knn_item
-        self_embed = m.dense_self(torch.cat([x, table[idx]], 1))
-        neigh_e = table[knn[idx]]  # (B, K, d)
+        knn = (self.knn_user if is_user else self.knn_item)[idx]  # (B, K)
+        n = idx.shape[0]
+        ids = torch.cat([idx, knn.reshape(-1)])
+        if table is None:
+            rows = self.lookup("user_emb" if is_user else "item_emb", ids)
+        else:
+            rows = table[ids]
+        own, neigh_e = rows[:n], rows[n:].view(n, knn.shape[1], -1)
+        x = self.semantic_x(idx, is_user, own, mask)
+        self_embed = m.dense_self(torch.cat([x, own], 1))
         self_rep = self_embed[:, None, :].expand_as(neigh_e)
         hop_raw = m.dense_hop(torch.cat([self_rep, neigh_e], -1))
         add_gate = torch.sigmoid(
@@ -221,49 +242,61 @@ class AGNNTrainer(ColdStartModelBase):
 
     def loss(self, batch: Dict[str, torch.Tensor],
              draws: Optional[dict] = None) -> torch.Tensor:
+        """``draws`` (else drawn): the global batch's masks and normal;
+        this rank keeps its block of each."""
         if draws is None:
-            draws = self.draw(batch["user"].shape[0])
-        m, masks = self.model, draws["masks"]
+            draws = self.draw(batch["user"].shape[0] * self.n_data)
+        m = self.model
+        masks = [self.data_block(x) for x in draws["masks"]]
+        normal = self.data_block(draws["normal"])
         w = batch["weight"]
         u_g = self.gcn_embed(batch["user"], True, masks[0])
         pos_g = self.gcn_embed(batch["pos_item"], False, masks[1])
         neg_g = self.gcn_embed(batch["neg_item"], False, masks[2])
-        rank_loss = bpr_loss(u_g, pos_g, neg_g, w)
+        # each term's (sum, count) parts in the one-device loss's order
+        rank = bpr_parts(u_g, pos_g, neg_g, w)
         if self.args.cold_object == "item":
-            x = self.semantic_x(batch["pos_item"], False, masks[3])
-            target = m.item_emb[batch["pos_item"]]
-            vae = m.item_vae
+            idx, is_user, vae = batch["pos_item"], False, m.item_vae
         else:
-            x = self.semantic_x(batch["user"], True, masks[3])
-            target = m.user_emb[batch["user"]]
-            vae = m.user_vae
+            idx, is_user, vae = batch["user"], True, m.user_vae
+        target = self.lookup("user_emb" if is_user else "item_emb", idx)
+        x = self.semantic_x(idx, is_user, target, masks[3])
         mu, logvar = vae.encode(x)
-        gen = vae.decode(mu + torch.exp(0.5 * logvar) * draws["normal"])
-        recon_loss = mse_loss(gen, target, w)
+        gen = vae.decode(mu + torch.exp(0.5 * logvar) * normal)
+        recon = wmean_parts((gen - target) ** 2, w)
         kl_el = (1 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1)
-        kl_loss = -0.5 * (kl_el * w).sum() / w.sum().clamp_min(1.0)
+        kl = wmean_parts(kl_el, w)
         if self.args.cold_object == "item":
-            gen_rank = bpr_loss(u_g, gen, neg_g, w)
+            gen_rank = bpr_parts(u_g, gen, neg_g, w)
         else:
-            gen_rank = bpr_loss(gen, pos_g, neg_g, w)
-        align = mse_loss(gen, target, w)
-        reg_loss = l2_reg_loss(self.reg, u_g, pos_g, neg_g, gen, weight=w)
+            gen_rank = bpr_parts(gen, pos_g, neg_g, w)
+        # the same value as recon, a term of its own as in the JAX loss
+        align = wmean_parts((gen - target) ** 2, w)
+        p = self.reduce_parts(torch.cat([
+            rank, recon, kl, gen_rank, align,
+            l2_parts(u_g, pos_g, neg_g, gen, weight=w)]))
+        kl_loss = -0.5 * wmean_from_parts(p[4:6])
+        reg_loss = l2_from_parts(p[10:], p[1].clamp_min(1.0), self.reg)
         a = self.args
-        return (rank_loss
-                + float(a.agnn_rank_weight) * gen_rank
-                + float(a.agnn_align_weight) * align
-                + float(a.agnn_vae_lambda) * (recon_loss + kl_loss)
+        return (wmean_from_parts(p[0:2])
+                + float(a.agnn_rank_weight) * wmean_from_parts(p[6:8])
+                + float(a.agnn_align_weight) * wmean_from_parts(p[8:10])
+                + float(a.agnn_vae_lambda) * (wmean_from_parts(p[2:4])
+                                              + kl_loss)
                 + reg_loss)
 
     def forward_tables(self):
         m = self.model
         dev = self.device
+        ut, it = self.full_table("user_emb"), self.full_table("item_emb")
         u_all = self.gcn_embed(torch.arange(self.data.user_num, device=dev),
-                               True)
+                               True, table=ut)
         i_all = self.gcn_embed(torch.arange(self.data.item_num, device=dev),
-                               False)
+                               False, table=it)
         # the cold rows: the VAE's decoded mean
         is_user = self.args.cold_object == "user"
         vae = m.user_vae if is_user else m.item_vae
-        mu, _ = vae.encode(self.semantic_x(self.cold_idx, is_user))
+        table = ut if is_user else it
+        mu, _ = vae.encode(self.semantic_x(self.cold_idx, is_user,
+                                           table[self.cold_idx]))
         return self.patch_cold_rows(u_all, i_all, vae.decode(mu))

@@ -17,6 +17,13 @@ M2VAE).
 Content with the value -1 in more than 1% of its entries is read as having
 missing values (the sentinel rule): those entries are masked out of the
 attention.
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis (the JAX
+rule, frozen or not). The item table is gathered whole once a step (its id
+grids name far more rows than it has) and the loss runs on it as on one
+device; the user rows come through the trainer's lookups. The loss is a
+sum of plain sums (the ``/ P`` is a constant), so its parts are its four
+terms, summed over the data group.
 """
 from __future__ import annotations
 
@@ -159,6 +166,8 @@ class CCFCRecTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded weights (and, under ``--pretrain``, the bus tables)."""
 
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.require_item_cold()
@@ -197,7 +206,7 @@ class CCFCRecTrainer(ColdStartModelBase):
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         m = self.model
         w = batch["weight"]
-        ie, ue = m.item_embedding, m.user_embedding
+        ie = self.full_table("item_embedding")
         q_v_c = m.generate(self.content[batch["pos_item"]],
                            self.missing_sentinel)
         contrast = grid_contrast(q_v_c, ie, batch, self.tau, self.P, w)
@@ -208,14 +217,17 @@ class CCFCRecTrainer(ColdStartModelBase):
         self_contrast = (-torch.log(self_pos / (self_pos + self_neg_sum))
                          * w).sum()
         item_emb = ie[batch["pos_item"]]
-        user_emb = ue[batch["user"]]
-        neg_user_emb = ue[batch["neg_user"]]
-        rank = (bpr_sum(item_emb, user_emb, neg_user_emb, w)
-                + bpr_sum(q_v_c, user_emb, neg_user_emb, w))
-        return (self.lambda1 * (contrast + self_contrast)
-                + (1 - self.lambda1) * rank)
+        user_emb = self.lookup("user_embedding", batch["user"])
+        neg_user_emb = self.lookup("user_embedding", batch["neg_user"])
+        p = self.reduce_parts(torch.stack([
+            contrast, self_contrast,
+            bpr_sum(item_emb, user_emb, neg_user_emb, w),
+            bpr_sum(q_v_c, user_emb, neg_user_emb, w)]))
+        return (self.lambda1 * (p[0] + p[1])
+                + (1 - self.lambda1) * (p[2] + p[3]))
 
     def forward_tables(self):
         m = self.model
         gen = m.generate(self.content[self.cold_idx], self.missing_sentinel)
-        return self.patch_cold_rows(m.user_embedding, m.item_embedding, gen)
+        return self.patch_cold_rows(self.full_table("user_embedding"),
+                                    self.full_table("item_embedding"), gen)

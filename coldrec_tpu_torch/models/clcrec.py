@@ -20,6 +20,14 @@ row twice. So the hybrid set here is a ``where`` over the mask of replaced
 rows: the same values, and each replaced row's feature takes its cotangent
 once, as in JAX. ``loss(batch, rand_index=)`` takes the draw (the tests
 hand it one with repeated rows).
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis and read
+through the trainer's lookups (the eval patch on the tables gathered
+whole). Every rank draws the hybrid set's rows for the global batch from
+the shared generator and keeps those of its own block of the flat rows
+(``replaced_rows``), so the ranks replace one rank's rows; the two NCE
+means and the two row-norm means of ``reg`` are parts summed over the
+data group.
 """
 from __future__ import annotations
 
@@ -31,11 +39,23 @@ from torch import nn
 
 from ..data.sampler import pairwise_batches_multi_neg, warm_item_pool
 from ..device import resolve_device
-from ..ops.losses import _normalize
+from ..ops.losses import _normalize, wmean_from_parts, wmean_parts
 from .cold_base import ColdStartModelBase
 from .common import JaxCarried, linear_params, linear_slots, xavier_uniform
 
 HIDDEN = 256
+
+
+def replaced_rows(rand_index: torch.Tensor, start: int,
+                  n_rows: int) -> torch.Tensor:
+    """(n_rows,) mask of the flat rows ``[start, start + n_rows)`` that
+    ``rand_index`` (drawn over the global batch's flat rows) names, re-based
+    to 0; a row named twice is marked once."""
+    local = rand_index.long() - start
+    own = (local >= 0) & (local < n_rows)
+    mask = torch.zeros(n_rows, dtype=torch.bool, device=rand_index.device)
+    mask[local[own]] = True
+    return mask
 
 
 class CLCRec(JaxCarried, nn.Module):
@@ -71,6 +91,8 @@ class CLCRecTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded weights."""
 
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.require_item_cold()
@@ -91,11 +113,11 @@ class CLCRecTrainer(ColdStartModelBase):
                                           self.host_rng, self.num_neg,
                                           self.pool)
 
-    def group_nce(self, anchor, others, weight):
-        """-log(pos / sum) over (B, 1 + num_neg) groups (CLCRec.py:117-123)."""
+    def group_nce(self, anchor, others):
+        """Each row's -log(pos / sum) over its (1 + num_neg) group
+        (CLCRec.py:117-123)."""
         scores = torch.exp((anchor * others).sum(dim=-1) / self.temp)
-        loss = -torch.log(scores[:, 0] / scores.sum(dim=1))
-        return (loss * weight).sum() / weight.sum().clamp_min(1.0)
+        return -torch.log(scores[:, 0] / scores.sum(dim=1))
 
     def draw_rand_index(self, n: int) -> torch.Tensor:
         """The hybrid set's replaced rows: ``int(n * num_sample)`` of the
@@ -105,6 +127,8 @@ class CLCRecTrainer(ColdStartModelBase):
 
     def loss(self, batch: Dict[str, torch.Tensor],
              rand_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``rand_index`` (else drawn): the replaced rows of the global
+        batch's flat (B * (1 + num_neg)) rows."""
         m = self.model
         b = batch["user"].shape[0]
         n1 = 1 + self.num_neg
@@ -113,27 +137,31 @@ class CLCRecTrainer(ColdStartModelBase):
                           dim=1)
         w = batch["weight"]
         feats = m.encode(self.content[items.reshape(-1)]).reshape(b, n1, -1)
-        item_embs = m.item_emb[items]
-        user_emb = m.user_emb[batch["user"]][:, None, :]
-        head_embed = _normalize(m.item_emb[batch["pos_item"]][:, None, :])
-        flat_emb = item_embs.reshape(b * n1, -1)
+        flat_emb = self.lookup("item_emb", items.reshape(-1))
+        user_emb = self.lookup("user_emb", batch["user"])[:, None, :]
+        head_embed = _normalize(
+            self.lookup("item_emb", batch["pos_item"])[:, None, :])
         flat_feat = feats.reshape(b * n1, -1)
+        n_flat = b * self.n_data * n1
         if rand_index is None:
-            rand_index = self.draw_rand_index(b * n1)
-        replaced = torch.zeros(b * n1, dtype=torch.bool, device=w.device)
-        replaced[rand_index.long()] = True
+            rand_index = self.draw_rand_index(n_flat)
+        replaced = replaced_rows(rand_index, self.data_offset(n_flat), b * n1)
         hybrid = torch.where(replaced[:, None], flat_feat, flat_emb)
-        loss1 = self.group_nce(head_embed, _normalize(feats), w)
-        loss2 = self.group_nce(user_emb, hybrid.reshape(b, n1, -1), w)
         w_rep = w.repeat_interleave(n1)
-        reg = ((user_emb[:, 0].norm(dim=1) * w).sum()
-               / w.sum().clamp_min(1.0)
-               + (flat_emb.norm(dim=1) * w_rep).sum()
-               / w_rep.sum().clamp_min(1.0)) / 2.0
-        return (self.lr_lambda * loss1 + (1 - self.lr_lambda) * loss2
+        # (sum, count) parts of loss1, loss2 and reg's two row-norm means
+        p = self.reduce_parts(torch.cat([
+            wmean_parts(self.group_nce(head_embed, _normalize(feats)), w),
+            wmean_parts(self.group_nce(user_emb,
+                                       hybrid.reshape(b, n1, -1)), w),
+            wmean_parts(user_emb[:, 0].norm(dim=1), w),
+            wmean_parts(flat_emb.norm(dim=1), w_rep)]))
+        reg = (wmean_from_parts(p[4:6]) + wmean_from_parts(p[6:8])) / 2.0
+        return (self.lr_lambda * wmean_from_parts(p[0:2])
+                + (1 - self.lr_lambda) * wmean_from_parts(p[2:4])
                 + self.reg * reg)
 
     def forward_tables(self):
         m = self.model
-        return self.patch_cold_rows(m.user_emb, m.item_emb,
+        return self.patch_cold_rows(self.full_table("user_emb"),
+                                    self.full_table("item_emb"),
                                     m.encode(self.content[self.cold_idx]))

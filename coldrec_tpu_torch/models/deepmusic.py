@@ -7,6 +7,11 @@ the batch's entities and their generated content embeddings, plus L2 on the
 generated ones (DeepMusic.py:22-29). Eval tables = the frozen backbone
 tables with the cold rows overwritten by generator(content)
 (DeepMusic.py:42-47).
+
+On ``--mesh DxM`` nothing shards (the backbone tables are buffers, not
+parameters, as they sit outside ``params`` in the JAX package): each data
+rank takes its block of the batch and the loss is made of the parts
+(``wmean_parts``, ``l2_parts``) summed over the data group.
 """
 from __future__ import annotations
 
@@ -16,7 +21,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import l2_reg_loss, mse_loss
+from ..ops.losses import (
+    l2_from_parts, l2_parts, wmean_from_parts, wmean_parts,
+)
 from .cold_base import ColdStartModelBase
 from .common import JaxCarried, mlp_apply, mlp_params, mlp_slots
 
@@ -43,6 +50,8 @@ class DeepMusic(JaxCarried, nn.Module):
 
 
 class DeepMusicTrainer(ColdStartModelBase):
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)
@@ -60,8 +69,11 @@ class DeepMusicTrainer(ColdStartModelBase):
             idx, table = batch["user"], self.backbone["user_emb"]
         gen = self.model.generate(self.content[idx])
         w = batch["weight"]
-        return mse_loss(gen, table[idx], w) + l2_reg_loss(self.reg, gen,
-                                                          weight=w)
+        p = self.reduce_parts(torch.cat([
+            wmean_parts((gen - table[idx]) ** 2, w), w.sum()[None],
+            l2_parts(gen, weight=w)]))
+        return wmean_from_parts(p[:2]) + l2_from_parts(
+            p[3:], p[2].clamp_min(1.0), self.reg)
 
     def forward_tables(self):
         gen = self.model.generate(self.content[self.cold_idx])

@@ -4,6 +4,11 @@ reference: model/DUIF.py).
 The cold-object side's table is replaced entirely by a bias-free linear
 projection of content (DUIF.py:87-91); the other side is a learned xavier
 table. Trained jointly with BPR + L2: a "joint" model, no backbone.
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis (the JAX
+rule; the cold side's takes no gradient), the warm side's rows come
+through the trainer's lookup, the projected side is computed whole on
+every rank, and the BPR + L2 parts are summed over the data group.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_from_parts, bpr_l2_parts
 from .cold_base import ColdStartModelBase
 from .common import JaxCarried, linear_params, linear_slots, xavier_uniform
 
@@ -44,6 +49,8 @@ class DUIF(JaxCarried, nn.Module):
 
 
 class DUIFTrainer(ColdStartModelBase):
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)
@@ -54,17 +61,26 @@ class DUIFTrainer(ColdStartModelBase):
             content_dim=self.content_dim)
         self.setup_optimizer()
 
+    def projected(self) -> torch.Tensor:
+        """The cold side's table: the projection of every row's content."""
+        n = (self.data.item_num if self.args.cold_object == "item"
+             else self.data.user_num)
+        return self.model.projector(self.content[:n])
+
     def forward_tables(self):
-        m = self.model
         if self.args.cold_object == "item":
-            return m.user_emb, m.projector(self.content[: self.data.item_num])
-        return m.projector(self.content[: self.data.user_num]), m.item_emb
+            return self.full_table("user_emb"), self.projected()
+        return self.projected(), self.full_table("item_emb")
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        user_table, item_table = self.forward_tables()
-        u = user_table[batch["user"]]
-        pos = item_table[batch["pos_item"]]
-        neg = item_table[batch["neg_item"]]
-        w = batch["weight"]
-        return bpr_loss(u, pos, neg, w) + l2_reg_loss(self.reg, u, pos, neg,
-                                                      weight=w)
+        if self.args.cold_object == "item":
+            item_table = self.projected()
+            u = self.lookup("user_emb", batch["user"])
+            pos = item_table[batch["pos_item"]]
+            neg = item_table[batch["neg_item"]]
+        else:
+            u = self.projected()[batch["user"]]
+            pos = self.lookup("item_emb", batch["pos_item"])
+            neg = self.lookup("item_emb", batch["neg_item"])
+        parts = bpr_l2_parts(u, pos, neg, batch["weight"])
+        return bpr_l2_from_parts(self.reduce_parts(parts), self.reg)

@@ -7,6 +7,11 @@ Generator-vs-recommender objective (GAR.py:25-31):
 Generator = content -> 2d tanh -> d tanh MLP (GAR.py:102-107). The backbone
 tables are loaded from the bus and fine-tuned (plain Parameters,
 GAR.py:110-115). Eval patches the cold rows with the generator's output.
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis and read
+through the trainer's lookups (the eval patch on the tables gathered
+whole); the loss's parts (four BPR sums, the MSE sum, the weight and the
+L2 squares) are summed over the data group.
 """
 from __future__ import annotations
 
@@ -16,7 +21,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.losses import bpr_loss, l2_reg_loss, mse_loss
+from ..ops.losses import (
+    bpr_parts, l2_from_parts, l2_parts, wmean_from_parts, wmean_parts,
+)
 from .cold_base import ColdStartModelBase
 from .common import (
     JaxCarried, mlp_apply, mlp_params, mlp_slots, table_param,
@@ -51,6 +58,8 @@ class GAR(JaxCarried, nn.Module):
 
 
 class GARTrainer(ColdStartModelBase):
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)
@@ -65,25 +74,33 @@ class GARTrainer(ColdStartModelBase):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         m = self.model
-        u = m.user_emb[batch["user"]]
-        pos = m.item_emb[batch["pos_item"]]
-        neg = m.item_emb[batch["neg_item"]]
+        u = self.lookup("user_emb", batch["user"])
+        pos = self.lookup("item_emb", batch["pos_item"])
+        neg = self.lookup("item_emb", batch["neg_item"])
         w = batch["weight"]
         a, b = self.alpha, self.beta
         if self.args.cold_object == "item":
             gen = m.generate(self.content[batch["pos_item"]])
-            gen_loss = ((1 - a) * bpr_loss(u, gen, pos, w)
-                        + a * mse_loss(gen, pos, w))
+            gen_parts = [bpr_parts(u, gen, pos, w),
+                         wmean_parts((gen - pos) ** 2, w)]
         else:
             gen = m.generate(self.content[batch["user"]])
-            gen_loss = ((1 - a) * bpr_loss(pos, gen, u, w)
-                        + a * mse_loss(gen, u, w))
-        rec_loss = ((1 - b) * bpr_loss(u, pos, gen, w)
-                    + b * bpr_loss(u, pos, neg, w))
-        return gen_loss + rec_loss + l2_reg_loss(self.reg, u, pos, neg, gen,
-                                                 weight=w)
+            gen_parts = [bpr_parts(pos, gen, u, w),
+                         wmean_parts((gen - u) ** 2, w)]
+        # [gen BPR, gen MSE, rec BPR vs gen, rec BPR vs neg] as (sum, count)
+        # pairs, then the L2 squares of u, pos, neg, gen
+        p = self.reduce_parts(torch.cat(
+            gen_parts + [bpr_parts(u, pos, gen, w), bpr_parts(u, pos, neg, w),
+                         l2_parts(u, pos, neg, gen, weight=w)]))
+        gen_loss = ((1 - a) * wmean_from_parts(p[0:2])
+                    + a * wmean_from_parts(p[2:4]))
+        rec_loss = ((1 - b) * wmean_from_parts(p[4:6])
+                    + b * wmean_from_parts(p[6:8]))
+        return gen_loss + rec_loss + l2_from_parts(p[8:], p[1].clamp_min(1.0),
+                                                   self.reg)
 
     def forward_tables(self):
         m = self.model
-        return self.patch_cold_rows(m.user_emb, m.item_emb,
+        return self.patch_cold_rows(self.full_table("user_emb"),
+                                    self.full_table("item_emb"),
                                     m.generate(self.content[self.cold_idx]))

@@ -20,6 +20,15 @@ two generator layers are default nn.Linear. The two BatchNorms are
 weights. The loss's draws (the two normals and the content dropout) come
 from the trainer's generator, or from ``loss(batch, draws=)`` (the tests
 hand it the JAX package's).
+
+On ``--mesh DxM`` nothing shards (the backbone tables are buffers, outside
+the JAX package's ``params`` too): each data rank takes its block of the
+batch, both BatchNorms take their statistics over the global batch
+(``MaskedBatchNorm1d.group``), every rank draws the global batch's planes
+and keeps its block, and the loss is made of parts summed over the data
+group: the reconstruction and KL sums over the global weight, and the
+uniformity's pairs of this rank's rows against every row of the global
+batch (``uniformity_parts``; each pair i < j counted once).
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.kmeans import kmeans
+from ..ops.losses import wmean_from_parts
+from ..parallel.ops import AllGatherRows
 from .cold_base import ColdStartModelBase
 from .common import (
     JaxCarried, MaskedBatchNorm1d, linear_params, linear_slots,
@@ -44,11 +55,28 @@ def uniformity(mu: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """log mean_{i<j} exp(-2 |x_i - x_j|^2) over the real pairs of the
     normalized rows x, the distances from one (B, B) Gram product
     (|x_i - x_j|^2 = 2 - 2 x_i.x_j for unit rows)."""
-    x = mu / mu.norm(dim=1, keepdim=True).clamp_min(1e-12)
-    sq = (2.0 - 2.0 * (x @ x.T)).clamp_min(0.0)
-    pair_w = torch.triu(weight[:, None] * weight[None, :], diagonal=1)
+    return torch.log(wmean_from_parts(uniformity_parts(mu, mu, weight,
+                                                       weight, 0)))
+
+
+def uniformity_parts(mu: torch.Tensor, mu_all: torch.Tensor,
+                     weight: torch.Tensor, weight_all: torch.Tensor,
+                     offset: int) -> torch.Tensor:
+    """[sum val * pair_w, sum pair_w] of the pairs (i, j), j > i, of the
+    rows ``mu`` (the global batch's rows ``offset`` on) against every row
+    ``mu_all`` of the global batch: summed over the blocks of a global
+    batch they are its :func:`uniformity`'s parts, each pair once."""
+    x = _unit(mu)
+    x_all = x if mu_all is mu else _unit(mu_all)
+    sq = (2.0 - 2.0 * (x @ x_all.T)).clamp_min(0.0)
+    pair_w = torch.triu(weight[:, None] * weight_all[None, :],
+                        diagonal=1 + offset)
     val = torch.exp(-2.0 * sq)
-    return torch.log((val * pair_w).sum() / pair_w.sum().clamp_min(1.0))
+    return torch.stack([(val * pair_w).sum(), pair_w.sum()])
+
+
+def _unit(mu: torch.Tensor) -> torch.Tensor:
+    return mu / mu.norm(dim=1, keepdim=True).clamp_min(1e-12)
 
 
 def head_params(in_dim: int, out_dim: int, gen: torch.Generator) -> nn.Linear:
@@ -114,6 +142,8 @@ class GoRecTrainer(ColdStartModelBase):
     with ``jax.random.choice``)."""
 
     fused_ok = False  # BatchNorm state: stateful in the JAX package
+    mesh_support = "sharded"
+    global_keys = ("weight",)
 
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None, kmeans_init=None):
@@ -149,6 +179,8 @@ class GoRecTrainer(ColdStartModelBase):
 
     def loss(self, batch: Dict[str, torch.Tensor],
              draws: Optional[dict] = None) -> torch.Tensor:
+        """``draws`` (else drawn): the global batch's planes; this rank
+        keeps its block of each."""
         m = self.model
         side_idx = (batch["pos_item"] if self.args.cold_object == "item"
                     else batch["user"])
@@ -157,7 +189,8 @@ class GoRecTrainer(ColdStartModelBase):
         side = side / side.norm(dim=1, keepdim=True).clamp_min(1e-12)
         w = batch["weight"]
         if draws is None:
-            draws = self.draw(w.shape[0])
+            draws = self.draw(w.shape[0] * self.n_data)
+        draws = {k: self.data_block(v) for k, v in draws.items()}
         mu, logvar, mu_zgc, logvar_zgc = m.encode(warm, side, w)
         z = draws["z"] * torch.exp(0.5 * logvar) + mu
         zgc = draws["zgc"] * torch.exp(0.5 * logvar_zgc) + mu_zgc
@@ -167,9 +200,6 @@ class GoRecTrainer(ColdStartModelBase):
                                torch.zeros_like(side))
         rec = m.decode(z, side, w)
         wcol = w[:, None]
-        denom = (w.sum() * warm.shape[1]).clamp_min(1.0)
-        rec_loss = ((rec - warm) ** 2 * wcol).sum() / denom
-        uni_loss = self.uni_coeff * uniformity(mu, w)
         z_sm = torch.softmax(z, dim=1)
         zgc_sm = torch.softmax(zgc, dim=1)
         log_z = torch.log(z_sm + 1e-10)
@@ -178,7 +208,20 @@ class GoRecTrainer(ColdStartModelBase):
             zgc_sm > 0,
             zgc_sm * (torch.log(zgc_sm.clamp_min(1e-38)) - log_z),
             torch.zeros_like(zgc_sm))
-        kl_loss = self.kl_coeff * (kl_el * wcol).sum() / denom
+        if self.n_data > 1:  # mu of the global batch, every row
+            mu_all = AllGatherRows.apply(mu, self.mesh.data_group, False)
+            w_all = self.global_rows(batch, "weight")
+        else:
+            mu_all, w_all = mu, w
+        p = self.reduce_parts(torch.cat([
+            torch.stack([((rec - warm) ** 2 * wcol).sum(),
+                         (kl_el * wcol).sum(), w.sum()]),
+            uniformity_parts(mu, mu_all, w, w_all,
+                             self.data_offset(w_all.shape[0]))]))
+        denom = (p[2] * warm.shape[1]).clamp_min(1.0)
+        rec_loss = p[0] / denom
+        uni_loss = self.uni_coeff * torch.log(wmean_from_parts(p[3:5]))
+        kl_loss = self.kl_coeff * p[1] / denom
         return rec_loss + uni_loss + kl_loss
 
     def forward_tables(self):

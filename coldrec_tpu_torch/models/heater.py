@@ -9,6 +9,11 @@ emb*(1-p) + content_emb*p at p = n_dropout (198; the JAX package blends by
 the dropout rate, no draw), shared out/trans Linears (218-222). Target =
 the frozen backbone pair scores (MSE). Eval re-encodes all users+items
 (127-136). The backbone is frozen (105-106).
+
+On ``--mesh DxM`` nothing shards (the backbone tables are buffers, outside
+the JAX package's ``params`` too): each data rank takes its block of the
+batch, and the loss's parts (the MSE's sum and weight, the two diff sums)
+are summed over the data group.
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ class Heater(JaxCarried, nn.Module):
 
 
 class HeaterTrainer(ColdStartModelBase):
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None,
                  init_state: Optional[Dict] = None):
         super().__init__(config)
@@ -103,8 +110,9 @@ class HeaterTrainer(ColdStartModelBase):
         pos_p, diff1 = self._pair_pred(batch["user"], batch["pos_item"], w)
         neg_p, diff2 = self._pair_pred(batch["user"], batch["neg_item"], w)
         se = ((pos_p - pos_t) ** 2 + (neg_p - neg_t) ** 2) * w
-        mse = se.sum() / (2 * w.sum()).clamp_min(1.0)
-        return mse + diff1 + diff2
+        p = self.reduce_parts(torch.stack([se.sum(), w.sum(), diff1, diff2]))
+        mse = p[0] / (2 * p[1]).clamp_min(1.0)
+        return mse + p[2] + p[3]
 
     def forward_tables(self):
         n = (self.data.item_num if self.args.cold_object == "item"

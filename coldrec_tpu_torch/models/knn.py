@@ -6,6 +6,13 @@ BPR + L2; a cold row is the mean of its ``--knn_num`` warm neighbours' rows,
 the neighbours found once by exact inner-product search over the content
 (faiss IndexFlatIP -> ``ops/knn.py``, KNN.py:63-77; on the card the
 retrieval kernel at the content's width).
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis (the JAX
+rule). The MF encoder reads the batch's rows through the trainer's
+lookups; the LightGCN encoder propagates the tables gathered whole on the
+one-device operator (the JAX KNN builds ``make_sym_spmm``, never the mesh
+graph). The BPR + L2 parts are summed over the data group. Every rank
+finds the same neighbours.
 """
 from __future__ import annotations
 
@@ -15,7 +22,8 @@ import numpy as np
 import torch
 
 from ..ops.knn import knn_inner_product
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_from_parts, bpr_l2_parts
+from ..ops.spmm import make_sym_spmm
 from .cold_base import ColdStartModelBase
 from .lightgcn import GraphTables, lightgcn_propagate
 
@@ -24,11 +32,14 @@ class KNNTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded tables."""
 
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.use_gcn = self.args.backbone != "MF"
         if self.use_gcn:
-            self.graph = self.build_graph()
+            self.graph = make_sym_spmm(self.data.norm_adj,
+                                       device=self.device)
             self.n_layers = int(self.args.layers)
         self.knn_num = int(self.args.knn_num)
         self.model = self.init_module(
@@ -53,20 +64,24 @@ class KNNTrainer(ColdStartModelBase):
         return warm[idx]
 
     def encoder_tables(self):
-        m = self.model
+        """The (user, item) tables of the encoder, whole."""
+        ut, it = self.full_table("user_emb"), self.full_table("item_emb")
         if self.use_gcn:
-            return lightgcn_propagate(self.graph, m.user_emb, m.item_emb,
-                                      self.n_layers)
-        return m.user_emb, m.item_emb
+            return lightgcn_propagate(self.graph, ut, it, self.n_layers)
+        return ut, it
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        ut, it = self.encoder_tables()
-        u = ut[batch["user"]]
-        pos = it[batch["pos_item"]]
-        neg = it[batch["neg_item"]]
-        w = batch["weight"]
-        return bpr_loss(u, pos, neg, w) + l2_reg_loss(self.reg, u, pos, neg,
-                                                      weight=w)
+        if self.use_gcn:
+            ut, it = self.encoder_tables()
+            u = ut[batch["user"]]
+            pos = it[batch["pos_item"]]
+            neg = it[batch["neg_item"]]
+        else:
+            u = self.lookup("user_emb", batch["user"])
+            pos = self.lookup("item_emb", batch["pos_item"])
+            neg = self.lookup("item_emb", batch["neg_item"])
+        parts = bpr_l2_parts(u, pos, neg, batch["weight"])
+        return bpr_l2_from_parts(self.reduce_parts(parts), self.reg)
 
     def forward_tables(self):
         ut, it = self.encoder_tables()

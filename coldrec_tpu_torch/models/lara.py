@@ -9,6 +9,10 @@ the (trainable) backbone tables, as the reference's single optimizer does.
 Batches come from the LARA sampler (a positive pair with a negative user
 AND a negative item, utils.py:160-188). Eval replaces the cold side's table
 ENTIRELY with the generator's output (LARA.py:116-128).
+
+On ``--mesh DxM`` both tables are row-sharded over the model axis and read
+through the trainer's lookups (the eval on the tables gathered whole);
+the four BCE means are parts (``wmean_parts``) summed over the data group.
 """
 from __future__ import annotations
 
@@ -20,19 +24,11 @@ from torch import nn
 
 from ..data.sampler import pairwise_batches_with_neg_users
 from ..device import resolve_device
-from ..ops.losses import bce_with_logits
+from ..ops.losses import bce_with_logits, wmean_from_parts, wmean_parts
 from .cold_base import ColdStartModelBase
 from .common import JaxCarried, linear_params, linear_slots, table_param
 
 LAYERS = ("G1", "G2", "G3", "D1", "D2", "D3")
-
-
-def bce_logits_mean(logits, targets, weight):
-    """BCE-with-logits per element, the mean over the real rows' (B, d)
-    elements."""
-    loss = bce_with_logits(logits, targets)
-    w = weight.reshape((-1,) + (1,) * (loss.dim() - 1))
-    return (loss * w).sum() / (w.sum() * loss.shape[-1]).clamp_min(1.0)
 
 
 class LARA(JaxCarried, nn.Module):
@@ -76,6 +72,8 @@ class LARATrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded layers and the bus tables."""
 
+    mesh_support = "sharded"
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         backbone = self.load_backbone()
@@ -89,36 +87,45 @@ class LARATrainer(ColdStartModelBase):
         return pairwise_batches_with_neg_users(self.data, self.batch_size,
                                                self.host_rng)
 
-    def generate(self, idx):
-        m = self.model
-        table = m.item_emb if self.args.cold_object == "item" else m.user_emb
-        return m.generator(self.content[idx], table[idx])
+    def cold_table(self) -> str:
+        return "item_emb" if self.args.cold_object == "item" else "user_emb"
+
+    def generate(self, idx, rows):
+        """The generator's embedding of the cold-side entities ``idx``,
+        whose table rows are ``rows``."""
+        return self.model.generator(self.content[idx], rows)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         m = self.model
         w = batch["weight"]
         if self.args.cold_object == "item":
             cold, counter = batch["pos_item"], batch["neg_item"]
-            real_emb = m.user_emb[batch["user"]]
-            neg_emb = m.user_emb[batch["neg_user"]]
+            real_emb = self.lookup("user_emb", batch["user"])
+            neg_emb = self.lookup("user_emb", batch["neg_user"])
         else:
             cold, counter = batch["user"], batch["neg_user"]
-            real_emb = m.item_emb[batch["pos_item"]]
-            neg_emb = m.item_emb[batch["neg_item"]]
-        fake_emb = self.generate(cold)
+            real_emb = self.lookup("item_emb", batch["pos_item"])
+            neg_emb = self.lookup("item_emb", batch["neg_item"])
+        fake_emb = self.generate(cold, self.lookup(self.cold_table(), cold))
         d_real = m.discriminator(self.content[cold], real_emb)
         d_fake = m.discriminator(self.content[cold], fake_emb)
         d_counter = m.discriminator(self.content[counter], neg_emb)
         ones, zeros = torch.ones_like(d_real), torch.zeros_like(d_real)
-        d_loss = (bce_logits_mean(d_real, ones, w)
-                  + bce_logits_mean(d_fake, zeros, w)
-                  + bce_logits_mean(d_counter, zeros, w))
-        return d_loss + bce_logits_mean(d_fake, ones, w)
+        # the (sum, count) parts of D's real, fake and counter terms, then
+        # G's
+        p = self.reduce_parts(torch.cat([
+            wmean_parts(bce_with_logits(d, t), w)
+            for d, t in ((d_real, ones), (d_fake, zeros), (d_counter, zeros),
+                         (d_fake, ones))]))
+        d_loss = (wmean_from_parts(p[0:2]) + wmean_from_parts(p[2:4])
+                  + wmean_from_parts(p[4:6]))
+        return d_loss + wmean_from_parts(p[6:8])
 
     def forward_tables(self):
-        m = self.model
+        n = (self.data.item_num if self.args.cold_object == "item"
+             else self.data.user_num)
+        idx = torch.arange(n, device=self.device)
+        gen = self.generate(idx, self.full_table(self.cold_table()))
         if self.args.cold_object == "item":
-            idx = torch.arange(self.data.item_num, device=self.device)
-            return m.user_emb, self.generate(idx)
-        idx = torch.arange(self.data.user_num, device=self.device)
-        return self.generate(idx), m.item_emb
+            return self.full_table("user_emb"), gen
+        return gen, self.full_table("item_emb")

@@ -10,6 +10,12 @@ differentiable through the inner gradient: ``torch.autograd.grad(...,
 create_graph=True)``, the reference's second-order step (194) and the JAX
 package's nested ``jax.grad``. The backbone tables are frozen; eval patches
 the cold rows with the meta embeddings.
+
+On ``--mesh DxM`` nothing shards (the backbone tables are buffers): each
+data rank takes its block of the batch. Both BCE means divide by the
+global batch's weight (``global_keys``), also inside the inner step, so
+each row's inner gradient is that of the global loss_a; the numerators are
+summed over the data group.
 """
 from __future__ import annotations
 
@@ -48,6 +54,9 @@ class MetaEmbeddingTrainer(ColdStartModelBase):
     """``init_params`` (the JAX trainer's ``params`` as numpy) replaces the
     seeded layer."""
 
+    mesh_support = "sharded"
+    global_keys = ("weight",)
+
     def __init__(self, config, init_params: Optional[Dict] = None):
         super().__init__(config)
         self.backbone = self.load_backbone()
@@ -71,16 +80,26 @@ class MetaEmbeddingTrainer(ColdStartModelBase):
         item_cold = self.args.cold_object == "item"
         meta = self.model(self.content[iid if item_cold else uid])
 
-        def loss_of(emb):
-            y = (ue * emb).sum(dim=1) if item_cold else (emb * ie).sum(dim=1)
-            return ((bce_with_logits(y, targets) * w).sum()
-                    / w.sum().clamp_min(1.0))
+        w_all = self.global_rows(batch, "weight")
+        denom = torch.cat([w_all, w_all]).sum().clamp_min(1.0)
 
-        loss_a = loss_of(meta)
-        # second order: the adapted embedding keeps the inner gradient's graph
+        def numerator(emb):
+            y = (ue * emb).sum(dim=1) if item_cold else (emb * ie).sum(dim=1)
+            return (bce_with_logits(y, targets) * w).sum()
+
+        num_a = numerator(meta)
+        adapted = meta - self.cold_lr * self.inner_grad(num_a / denom, meta)
+        p = self.reduce_parts(torch.stack([num_a, numerator(adapted)]))
+        return self.alpha * (p[0] / denom) + (1 - self.alpha) * (p[1] / denom)
+
+    @staticmethod
+    def inner_grad(loss_a: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+        """d loss_a / d meta, keeping its graph (second order: the adapted
+        embedding stays differentiable through it). ``loss_a`` is this
+        rank's numerator over the global weight, so each of its rows gets
+        the global loss_a's gradient."""
         (grad,) = torch.autograd.grad(loss_a, meta, create_graph=True)
-        loss_b = loss_of(meta - self.cold_lr * grad)
-        return self.alpha * loss_a + (1 - self.alpha) * loss_b
+        return grad
 
     def forward_tables(self):
         gen = self.model(self.content[self.cold_idx])

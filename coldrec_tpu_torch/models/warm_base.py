@@ -54,10 +54,10 @@ block (``data_block``; a whole plane ``plane_rand``). A loss whose terms
 run over the global batch (an InfoNCE's columns) takes the batch's
 ``global_keys`` whole as ``<key>_all`` (``global_rows``). The eval tables
 are gathered whole on every rank. A process group with no ``--mesh`` is
-data-parallel over every rank, as in the JAX package. Only models with
-``mesh_support = "sharded"`` (MF, the graph backbones, DropoutNet, CGRC)
-take a mesh; those whose JAX trainer never sets one up (``"one_device"``)
-ignore it; every other model refuses it. Under a
+data-parallel over every rank, as in the JAX package. Every trainer
+states its ``mesh_support``: ``"sharded"`` models take a mesh, those whose
+JAX trainer never sets one up (``"one_device"``: ALDI, FSGNN, M2VAE, MTPR,
+VBPR, AMR, USIM) ignore it. Under a
 group, rank 0 alone writes the bus and the train state; sharded tables and
 their Adam moments are gathered before the write and sharded again on
 resume.
@@ -130,12 +130,10 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
     # sets this False and keeps the per-batch loop, as there
     fused_ok = True
     current_epoch = None  # the epoch being trained, for --debug_nans
-    # "sharded": the loss as partial sums and the tables through
-    # parallel.ops, so --mesh and process groups run (MF, the graph
-    # backbones, DropoutNet, CGRC); "one_device": --mesh ignored, as the JAX
-    # trainer never sets up its mesh; "refuse": a mesh or group raises
-    # (ROADMAP Queue 1, item 7d)
-    mesh_support = "refuse"
+    # stated by every trainer: "sharded", the loss as partial sums and the
+    # tables through parallel.ops, so --mesh and process groups run;
+    # "one_device", --mesh ignored, as the JAX trainer never sets up its mesh
+    mesh_support: str
     # batch columns the loss also takes whole under a data axis, as
     # ``<key>_all`` (the global batch's ids of an InfoNCE's columns)
     global_keys = ()
@@ -178,13 +176,6 @@ class WarmBackboneTrainer(BaseColdStartTrainer):
         n_data, n_model = parse_mesh(spec) if spec else (process_count(), 1)
         if n_data * n_model == 1 and not multi:
             return None
-        if self.mesh_support != "sharded":
-            raise NotImplementedError(
-                f"{self.model_name} on a mesh or a process group (--mesh "
-                f"{spec or 'unset'}, {process_count()} process(es)): the port "
-                "brings the data and model axes to MF, the graph backbones, "
-                f"DropoutNet and CGRC only; {self.model_name} waits for "
-                "ROADMAP.md Queue 1, item 7d")
         self.mesh = make_mesh(n_data, n_model)
         return self.mesh
 

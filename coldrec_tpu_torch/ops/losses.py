@@ -10,9 +10,13 @@ reference's mean over the real rows.
 
 A batch split over the data axis of a mesh sums additive parts before the
 loss: ``bpr_l2_parts`` (BPR and the L2 terms, whose square roots do not add
-up over blocks) and ``info_nce_parts`` (an InfoNCE whose denominators run
-over every column of the global batch: a block of anchor rows scored
-against all columns adds up as (sum -log p * valid, sum valid)).
+up over blocks), ``wmean_parts`` (any weighted mean: ``_wmean``,
+``mse_loss``, a BCE or KL mean), ``bpr_parts``, ``l2_parts`` and
+``info_nce_parts`` (an InfoNCE whose denominators run over every column of
+the global batch: a block of anchor rows scored against all columns adds
+up as (sum -log p * valid, sum valid)). Each ``*_from_parts`` repeats its
+one-device function's operations in their order, so one block's parts
+give that function's value bit for bit.
 """
 from __future__ import annotations
 
@@ -41,6 +45,37 @@ def bpr_loss(
     neg_score = (user_emb * neg_item_emb).sum(dim=1)
     loss = -torch.log(_BPR_EPS + torch.sigmoid(pos_score - neg_score))
     return _wmean(loss, weight)
+
+
+def wmean_parts(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """[sum x * w, sum w * (elements of a row)], ``weight`` one value per
+    row: the additive parts of a weighted mean over the real rows' elements
+    (``_wmean`` of a (B,) ``x``, ``mse_loss`` and the BCE and KL means of a
+    (B, d) one)."""
+    w = weight.reshape((-1,) + (1,) * (x.dim() - 1))
+    count = w.sum()
+    if x.dim() > 1:
+        count = count * x.shape[-1]
+    return torch.stack([(x * w).sum(), count])
+
+
+def wmean_from_parts(parts: torch.Tensor) -> torch.Tensor:
+    """The weighted mean of :func:`wmean_parts` (summed over the blocks)."""
+    return parts[0] / parts[1].clamp_min(1.0)
+
+
+def bpr_parts(
+    user_emb: torch.Tensor,
+    pos_item_emb: torch.Tensor,
+    neg_item_emb: torch.Tensor,
+    weight: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`wmean_parts` of :func:`bpr_loss`'s terms:
+    ``wmean_from_parts`` of them is ``bpr_loss(..., weight)``."""
+    pos_score = (user_emb * pos_item_emb).sum(dim=1)
+    neg_score = (user_emb * neg_item_emb).sum(dim=1)
+    loss = -torch.log(_BPR_EPS + torch.sigmoid(pos_score - neg_score))
+    return wmean_parts(loss, weight)
 
 
 def l2_reg_loss(
@@ -77,11 +112,8 @@ def bpr_l2_parts(
     batch's sums, which :func:`bpr_l2_from_parts` turns into the loss; the
     L2 term is a square root of a sum, so the loss itself does not add up
     over blocks."""
-    pos_score = (user_emb * pos_item_emb).sum(dim=1)
-    neg_score = (user_emb * neg_item_emb).sum(dim=1)
-    bpr = -torch.log(_BPR_EPS + torch.sigmoid(pos_score - neg_score))
     embs = (user_emb, pos_item_emb) + ((neg_item_emb,) if l2_neg else ())
-    return torch.cat([torch.stack([(bpr * weight).sum(), weight.sum()]),
+    return torch.cat([bpr_parts(user_emb, pos_item_emb, neg_item_emb, weight),
                       l2_parts(*embs, weight=weight)])
 
 

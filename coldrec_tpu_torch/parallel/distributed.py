@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import random
 import socket
 import subprocess
 import tempfile
@@ -255,7 +256,24 @@ def allgather_host(local: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------ launching
 def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
+    """A TCP port on localhost that was free a moment ago, drawn below the
+    kernel's ephemeral range: a port the kernel numbers itself (as gloo's
+    connections of a group starting beside this one are) could take it
+    between this check and the coordinator's bind."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            first = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        first = 32768
+    rng = random.Random()
+    for _ in range(64):
+        port = rng.randrange(max(1024, first - 16384), first)
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

@@ -36,7 +36,14 @@ and by this process alone (no group), and held against each other:
   * ``xsimgcl``: one XSimGCL epoch (2 layers, bs 256): its noise drawn as
     the whole plane on every rank, its InfoNCE over the global batch, the
     sharded SpMM where M > 1; the user and item tables row-sharded, the
-    losses and eval tables within ``TOL`` of one rank's.
+    losses and eval tables within ``TOL`` of one rank's;
+  * ``gar``: one GAR epoch on the bus phase's bus, its (fine-tuned) bus
+    tables row-sharded (each rank ``1 / M`` of the rows), the losses and
+    eval tables within ``TOL`` of one rank's (bit-equal where D = 1);
+  * ``gorec``: one GoRec epoch on that bus (content dropout on): both
+    BatchNorms and the uniformity term over the global batch, the losses,
+    eval tables and BatchNorm running statistics within ``TOL`` of one
+    rank's (every rank's statistics equal: ``ranks_agree``).
 
 Prints one JSON line with each phase's result and exits non-zero on any
 failed rank or check.
@@ -62,7 +69,7 @@ from .distributed import (
 
 TOL = 1e-5  # LightGCN, and MF over a data axis: sums in another order
 PHASES = ("mf", "lightgcn", "serve", "bus", "dropoutnet", "resume", "cgrc",
-          "xsimgcl")
+          "xsimgcl", "gar", "gorec")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -93,9 +100,9 @@ def _step(model: str, spec: str, device: str, **kw) -> dict:
             "item_emb": trainer.item_emb.cpu().numpy()}
 
 
-def _bus_and_dropoutnet(spec: str, device: str, work: str) -> dict:
-    """Phases bus, dropoutnet and resume under mesh ``spec`` in ``work``
-    (the bus and the checkpoint there)."""
+def _on_the_bus(spec: str, device: str, work: str) -> dict:
+    """Phases bus, dropoutnet, resume, gar and gorec under mesh ``spec`` in
+    ``work`` (the bus and the checkpoint there)."""
     from ..config import default_args
     from ..data.synthetic import synthetic_dataset
     from ..models import model_factory
@@ -134,7 +141,24 @@ def _bus_and_dropoutnet(spec: str, device: str, work: str) -> dict:
             f"{phase}/table_rows": np.asarray(
                 [t.model.user_emb.shape[0], t.model.item_emb.shape[0]]),
         })
+    t = run("GAR", epochs=1, save_emb=False)
+    out.update(_summary("gar", t, table_rows=np.asarray(
+        [t.model.user_emb.shape[0], t.model.item_emb.shape[0]])))
+    t = run("GoRec", epochs=1, save_emb=False, pre_cluster_num=8,
+            dropout=0.2)
+    bns = [b for b in t.model.modules() if isinstance(b, MaskedBatchNorm1d)]
+    out.update(_summary("gorec", t, bn=torch.cat([x for b in bns for x in (
+        b.running_mean, b.running_var)]).cpu().numpy()))
     return out
+
+
+def _summary(phase: str, trainer, **extra) -> dict:
+    """A one-epoch run's losses and eval tables (and ``extra``), keyed
+    ``phase/...``."""
+    return {f"{phase}/{k}": v for k, v in {
+        "losses": np.asarray(trainer.epoch_stats[0]["losses"]),
+        "user_emb": trainer.user_emb.cpu().numpy(),
+        "item_emb": trainer.item_emb.cpu().numpy(), **extra}.items()}
 
 
 def _epoch(model: str, spec: str, device: str, **kw) -> dict:
@@ -194,7 +218,7 @@ def phases(spec: str, device: str, work: Optional[str] = None) -> dict:
     with contextlib.ExitStack() as stack:
         if work is None:
             work = stack.enter_context(tempfile.TemporaryDirectory())
-        out.update(_bus_and_dropoutnet(spec, device, work))
+        out.update(_on_the_bus(spec, device, work))
     return out
 
 
@@ -226,6 +250,15 @@ def compare(ranks: dict, one: dict, n_data: int, n_model: int,
                          "max_abs_err": err, "finite_metrics": finite,
                          "sharded_rows":
                          ranks[f"{phase}/table_rows"].tolist()}
+    for phase, keys in (("gar", ("losses",) + tables),
+                        ("gorec", ("losses", "bn") + tables)):
+        err = gap(phase, keys)
+        epochs[phase] = {"ok": err == 0.0 if n_data == 1 else err <= TOL,
+                         "max_abs_err": err, "bit_equal": err == 0.0}
+    gar_rows = one["gar/table_rows"] // n_model
+    epochs["gar"]["sharded_rows"] = ranks["gar/table_rows"].tolist()
+    epochs["gar"]["ok"] &= bool(np.array_equal(ranks["gar/table_rows"],
+                                               gar_rows))
     return {
         "bus": {"ok": bus_gap == 0.0 if n_data == 1 else bus_gap <= TOL,
                 "max_abs_err": bus_gap},

@@ -7,14 +7,17 @@ and in float64.
 
 On the card (every rank on ``cuda:0``) or, with ``--device cpu``, on the
 CPU: writes the split of ``--config`` with N(0,1) item content
-(``--content_seed`` in place of the config's seed; CGRC's ``content``
-columns in place of the config's), and for DropoutNet trains MF on it
-through the port's CLI (one rank) to write the bus. Then trains ``--model``
-(DropoutNet: towers ``--hidden`` wide, else the CLI's default; SimGCL,
-XSimGCL, NGCF, NCL: 2 layers, NCL with its proto term and e-step on from
-epoch 0; CGRC) by its own loop (validation every epoch, the best epoch's
-eval tables kept) on one rank and on the mesh of ranks (each a subprocess;
-gloo) from the same seed, with deterministic algorithms, for each variant:
+(``--content_seed`` in place of the config's seed; under ``ml`` the
+model's content columns in place of the config's: 206 for CGRC and the
+cold models), and for a model that reads MF's bus (``ON_THE_BUS``) trains
+MF on it through the port's CLI (one rank) to write the bus. Then trains
+``--model`` (DropoutNet: towers ``--hidden`` wide, else the CLI's default;
+SimGCL, XSimGCL, NGCF, NCL: 2 layers, NCL with its proto term and e-step
+on from epoch 0; CGRC; the cold models of phase mesh (l)-(v), KNN on a
+2-layer LightGCN encoder) by its own loop (validation every epoch, the
+best epoch's eval tables kept) on one rank and on the mesh of ranks (each
+a subprocess; gloo) from the same seed, with deterministic algorithms,
+for each variant:
 
 - ``float32``: as the CLI trains it;
 - ``float64``: the module, its float32 tensors (content table, graph
@@ -28,7 +31,8 @@ gloo) from the same seed, with deterministic algorithms, for each variant:
 Then each run's best eval tables go through the three-way test. Prints,
 for each variant, the largest relative gap of the per-step losses (any
 rank against one rank) up to steps 1, 10, 20, 50, 100 and the last, the
-largest gaps of the BatchNorm running statistics (none but DropoutNet's)
+largest gaps of the BatchNorm running statistics (DropoutNet's and
+GoRec's; none elsewhere)
 and of the test metrics; then, with both precisions, one rank's float32
 losses against its float64 ones (for SimGCL and XSimGCL two different
 noise streams: a float64 U(0,1) draw is not a float32 one); then one JSON
@@ -37,8 +41,10 @@ line of the same. The configurations:
 - ``ml``: ``chip_smoke.py``'s ``ml_synth`` split (MovieLens-1M's shape,
   one content column; CGRC 206) and phase mesh's flags for the model, 1
   epoch: DropoutNet (f) ``2x2``; XSimGCL (g) ``2x2``, SimGCL (h) ``1x2``,
-  NGCF (i) ``2x2``, NCL (j) ``2x2``, CGRC (k) ``2x2``, each cut to 40
-  batches (the phase trains 10);
+  NGCF (i) ``2x2``, NCL (j) ``2x2``, CGRC (k) ``2x2``; DUIF, KNN, LARA,
+  DeepMusic and Heater ``1x2``, GAR, CLCRec, CCFCRec, AGNN, MetaEmbedding
+  and GoRec ``2x2`` ((l)-(v)), each cut to 40 batches (the phase trains
+  10);
 - ``bus``: ``tests/test_torch_multiprocess_bus.py``'s split, content and
   flags, 2 epochs, ``2x1`` (``--mesh`` in place of it).
 
@@ -68,7 +74,22 @@ MODELS = {
     "NGCF": (["--layers", "2"], "2x2", 40, None),
     "NCL": (["--layers", "2"], "2x2", 40, None),
     "CGRC": ([], "2x2", 40, 206),
+    # the cold models of phase mesh (l)-(v), on its 206 content columns
+    "DUIF": ([], "1x2", 40, 206),
+    "KNN": (["--backbone", "LightGCN", "--layers", "2"], "1x2", 40, 206),
+    "LARA": ([], "1x2", 40, 206),
+    "DeepMusic": ([], "1x2", 40, 206),
+    "Heater": ([], "1x2", 40, 206),
+    "GAR": ([], "2x2", 40, 206),
+    "CLCRec": ([], "2x2", 40, 206),
+    "CCFCRec": ([], "2x2", 40, 206),
+    "AGNN": ([], "2x2", 40, 206),
+    "MetaEmbedding": ([], "2x2", 40, 206),
+    "GoRec": ([], "2x2", 40, 206),
 }
+# the models that read MF's bus (``write_inputs`` trains it first)
+ON_THE_BUS = ("DropoutNet", "GAR", "DeepMusic", "Heater", "AGNN",
+              "MetaEmbedding", "LARA", "GoRec")
 # the weights whose exact gradient is 0, by model (``frozen``)
 ZERO_GRADIENT = {
     "DropoutNet": lambda name: ".lins." in name and name.endswith(".bias"),
@@ -132,8 +153,9 @@ def noise_walked(name: str, model: str = "DropoutNet") -> bool:
 
 def as_float64(t) -> None:
     """Trainer ``t`` in float64: its module, its float32 tensors (the
-    content table), the values of its graph operators (the ELL layout's;
-    a mesh graph's edges promote) and its optimizer's state."""
+    content table, a dict's: the backbone's tables), the values of its
+    graph operators (the ELL layout's; a mesh graph's edges promote) and
+    its optimizer's state."""
     from ..ops.spmm import SymSpmm
 
     state = t.optimizer.state_dict()
@@ -141,6 +163,12 @@ def as_float64(t) -> None:
     for name, v in list(vars(t).items()):
         if torch.is_tensor(v) and v.dtype == torch.float32:
             setattr(t, name, v.double())
+        elif isinstance(v, dict) and any(torch.is_tensor(x)
+                                         for x in v.values()):
+            # a backbone's tables read from the bus
+            setattr(t, name, {k: x.double() if torch.is_tensor(x)
+                              and x.dtype == torch.float32 else x
+                              for k, x in v.items()})
         elif isinstance(v, SymSpmm):
             v.graph = v.graph._replace(ell_vals=v.graph.ell_vals.double(),
                                        tail_vals=v.graph.tail_vals.double())
@@ -319,7 +347,7 @@ def main(argv=None) -> None:
         root = a.out or tmp
         os.makedirs(root, exist_ok=True)
         write_inputs(cfg, root, a.device, a.content_seed, columns,
-                     bus=a.model == "DropoutNet")
+                     bus=a.model in ON_THE_BUS)
         result = drift(cli_flags(a.model, root, flags, a.device), mesh,
                        variants, root, epoch_steps=steps)
     one = {v: np.asarray(result[v].pop("one_losses")) for v in result}

@@ -8,7 +8,9 @@ checkpoint) and its resume to epoch 2 bit-equal to one rank at 1x2 and
 within ``dryrun.TOL`` at 2x2, the resumed bus tables row-sharded again;
 one CGRC epoch (the user table row-sharded, the JAX dry run's phase 3) and
 one XSimGCL epoch (both tables row-sharded) within ``dryrun.TOL`` of one
-rank's, their test metrics finite; every rank's results the same."""
+rank's, their test metrics finite; one GAR and one GoRec epoch on the bus
+(bit-equal at 1x2, within ``dryrun.TOL`` at 2x2); every rank's results the
+same."""
 import json
 import os
 import subprocess
@@ -71,3 +73,17 @@ def test_dryrun_graph_phases_match_one_rank(verdicts, n, mesh):
         assert v[phase]["ok"], v[phase]
         assert v[phase]["finite_metrics"]
         assert v[phase]["sharded_rows"] == rows
+
+
+@pytest.mark.parametrize("n,mesh", [(2, "1x2"), (4, "2x2")])
+def test_dryrun_cold_model_phases_match_one_rank(verdicts, n, mesh):
+    """GAR on the bus phase's bus, its tables row-sharded (each rank half
+    of the 96 users and 80 items), and GoRec on it (BatchNorm and
+    uniformity over the global batch, every rank's running statistics the
+    same): losses and eval tables within ``dryrun.TOL`` of one rank's,
+    bit-equal without a data axis."""
+    v = verdicts[n]
+    assert v["gar"]["ok"] and v["gorec"]["ok"], (v["gar"], v["gorec"])
+    assert v["gar"]["sharded_rows"] == [48, 40]
+    if mesh == "1x2":
+        assert v["gar"]["bit_equal"] and v["gorec"]["bit_equal"]

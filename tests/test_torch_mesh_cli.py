@@ -12,7 +12,13 @@ CGRC ``2x2`` on the split with 206 item columns, each trained for
 ``MESH_STEPS`` batches (all of the tiny split's) and held to its one-rank
 run, (h) in (b)'s ranks and (g), (i)-(k) in (d)'s; the one-rank runs of
 (g), (h) and (k) replay their ranks' records (the perturbed elements' signs,
-Ĝ's top-k users) and account for every difference as a tie; every rank's
+Ĝ's top-k users) and account for every difference as a tie; the eleven cold
+models on the split with 206 item columns, (l) DUIF, (m) KNN, (n) LARA,
+(o) DeepMusic and (p) Heater ``--mesh 1x2`` bit-equal to one rank, (q) GAR,
+(r) CLCRec, (s) CCFCRec, (t) AGNN, (u) MetaEmbedding and (v) GoRec ``--mesh
+2x2`` within their tolerances (GoRec's BatchNorm statistics equal on every
+rank), (l), (m) in (b)'s ranks, (r), (s) in (d)'s, (n)-(p) in (e)'s and
+(q), (t)-(v) in (f)'s, on (c)'s bus where they read one; every rank's
 backend and device logged, rank 0 the only writer."""
 from test_torch_imports import _run_blocked
 from test_torch_threads import torch_threads  # noqa: F401
@@ -59,6 +65,16 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu_without_jax(tmp_path):
                  "Ĝ: the ranks' top-k users (every rank's the same) equal "
                  "one rank's in ",
                  "(h) --model SimGCL --layers 2 --mesh 1x2 --deterministic "
-                 "--epoch_steps 10: 2 ranks (run 2 of 2 in the group)",
-                 "rank 3 on cpu"):
+                 "--epoch_steps 10: 2 ranks (run 2 of 4 in the group)",
+                 "rank 3 on cpu",
+                 *(f"({t}) 2 ranks vs one: losses 0.000e+00 relative"
+                   for t in "lmnop"),
+                 *(f"({t}) 4 ranks vs one" for t in "qrstuv"),
+                 "(m) --model KNN --backbone LightGCN --layers 2 --mesh 1x2 "
+                 "--deterministic --epoch_steps 10: 2 ranks (run 4 of 4 in "
+                 "the group)",
+                 "(s) --model CCFCRec --mesh 2x2 --deterministic "
+                 "--epoch_steps 10: 4 ranks (run 7 of 7 in the group)",
+                 "(v) --model GoRec --mesh 2x2 --deterministic "
+                 "--epoch_steps 10: 4 ranks (run 5 of 5 in the group)"):
         assert line in proc.stdout, line

@@ -5,7 +5,8 @@ in float64, where summation order moves a loss by float64's rounding only.
 
 Held: every loss within FLOAT64_RTOL relative of one rank's, the running
 statistics within FLOAT64_ATOL, the test metrics equal; the same of
-XSimGCL on 4 ranks (``2x2``, ``--model``); the trainer carries no float32
+XSimGCL on 4 ranks (``2x2``, ``--model``) and of GoRec on MF's bus
+(``2x1``); the trainer carries no float32
 weight after ``as_float64`` and its eval tables are float32 (the retrieval
 kernel's type).
 """
@@ -53,6 +54,24 @@ def test_float64_graph_model_2x2_matches_one_rank(tmp_path, model):
                            timeout=240)["float64"]
     assert res["steps"] == 16
     assert max(res["loss_rel_gap_up_to"].values()) <= FLOAT64_RTOL, res
+    assert res["metrics_abs_gap"] == 0.0, res
+
+
+def test_float64_cold_model_matches_one_rank(tmp_path):
+    """``--model GoRec`` on MF's bus (``ON_THE_BUS``), ``2x1``: its two
+    BatchNorms and its uniformity over the global batch, its draws the
+    global batch's, against one rank in float64 (its backbone tables, a
+    dict of the trainer, converted too)."""
+    cfg = mesh_drift.CONFIGS["bus"]
+    root = str(tmp_path)
+    assert "GoRec" in mesh_drift.ON_THE_BUS
+    mesh_drift.write_inputs(cfg, root, "cpu")
+    argv = mesh_drift.cli_flags("GoRec", root, cfg["flags"], "cpu")
+    res = mesh_drift.drift(argv, cfg["mesh"], ["float64"], root,
+                           timeout=240)["float64"]
+    assert res["steps"] == 16
+    assert max(res["loss_rel_gap_up_to"].values()) <= FLOAT64_RTOL, res
+    assert res["bn_abs_gap"] <= FLOAT64_ATOL, res
     assert res["metrics_abs_gap"] == 0.0, res
 
 

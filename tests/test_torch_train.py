@@ -14,6 +14,7 @@ quarantine, the best epoch's tables on the bus, the refused flags (and the
 accepted ``--fused_steps``), ``--profile`` and ``--debug_nans``, and the
 CLI's result file against ``main.py``'s.
 """
+import inspect
 import json
 import os
 
@@ -33,7 +34,7 @@ from coldrec_tpu_torch.data.split import cold_start_split, write_split_dir
 from coldrec_tpu_torch.data.synthetic import (
     synthetic_dataset, synthetic_interactions,
 )
-from coldrec_tpu_torch.models import model_factory
+from coldrec_tpu_torch.models import TRAINERS, model_factory, warm_base
 from coldrec_tpu_torch.models.mf import MFTrainer
 from coldrec_tpu_torch.runtime.checkpoints import load_embeddings
 from coldrec_tpu_torch.runtime.trainer import Config
@@ -265,24 +266,36 @@ def test_refused_flags(datasets, overrides, error, match):
 
 
 @pytest.mark.parametrize("model,mesh,error", [
-    ("CLCRec", "2x1", NotImplementedError),  # not on the data axis yet
-    ("KNN", "1x2", NotImplementedError),
+    ("CLCRec", "2x1", ValueError),  # a data axis needs its ranks
+    ("KNN", "1x2", ValueError),
     ("MTPR", "2x1", None),  # JAX's MTPR never sets up a mesh: one device
     ("LightGCN", "1x1", None),  # a 1x1 mesh is the single-device path
 ])
 def test_mesh_by_model(datasets, model, mesh, error):
-    """``--mesh`` for the models off the data and model axes: refused with
-    the ROADMAP item that brings them (7d), or ignored as the JAX package's
-    trainer ignores it."""
+    """``--mesh`` on one process: a model on the mesh asks ``make_mesh``
+    for its ranks and is told how many it has; a model whose JAX trainer
+    never sets up a mesh ignores it, as does a 1x1 mesh."""
     _, td = datasets
     args = default_args(**{**COMMON, "device": "cpu", "epochs": 1,
                            "model": model, "mesh": mesh, "layers": 1})
     if error is not None:
-        with pytest.raises(error, match="Queue 1, item 7d$"):
+        with pytest.raises(error, match="needs 2 processes, have 1$"):
             model_factory(Config(args, td))
         return
     trainer = model_factory(Config(args, td))
     assert trainer.mesh is None and not trainer.sharded
+
+
+@pytest.mark.parametrize("model", sorted(TRAINERS))
+def test_every_trainer_states_its_mesh_support(model):
+    """Each trainer of the factory takes the mesh (``"sharded"``) or
+    ignores it as its JAX trainer does (``"one_device"``); none refuses
+    it."""
+    cls = TRAINERS[model]
+    assert cls.mesh_support in ("sharded", "one_device")
+    for source in (inspect.getsource(inspect.getmodule(cls)),
+                   inspect.getsource(warm_base)):
+        assert "item 7d" not in source
 
 
 @pytest.mark.parametrize("model,cold_object,match", [

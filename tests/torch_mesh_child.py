@@ -1,6 +1,7 @@
 """A rank of ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_mesh_dropoutnet.py``, ``tests/test_torch_mesh_graph.py``
-and ``tests/test_torch_mesh_cgrc.py``: runs each job of a JSON spec (a
+``tests/test_torch_mesh_dropoutnet.py``, ``tests/test_torch_mesh_graph.py``,
+``tests/test_torch_mesh_cgrc.py`` and the cold models' mesh tests
+(``tests/torch_mesh_cold_case.py``): runs each job of a JSON spec (a
 model and its flags) on the process group the ``COLDREC_*`` variables
 configure, on the CPU, and writes what each run leaves (:func:`summary`) to
 ``<out>/<job>_rank<r>.npz``. A job named ``syncbn...`` runs
@@ -11,8 +12,10 @@ JAX.
 """
 import contextlib
 import json
+import os
 import pickle
 import sys
+import time
 
 import numpy as np
 import torch
@@ -36,7 +39,8 @@ SYNCBN_ROWS, SYNCBN_DIM = 16, 6
 
 def summary(m) -> dict:
     """A finished run's eval tables, per-batch losses, test metrics, overall
-    test lists and the shapes of its (local) parameters; for DropoutNet
+    test lists, the shapes of its (local) parameters, the names of its
+    row-sharded tables and any BatchNorm running statistics; for DropoutNet
     also its bus tables gathered whole, its tower weights, its BatchNorm
     running statistics and the global masks it drew; for NGCF its Linears,
     for NCL its last clusters; for CGRC its replicated weights but the edge
@@ -76,7 +80,12 @@ def summary(m) -> dict:
                                  (b.running_mean, b.running_var)]).numpy(),
                 "masks": torch.stack(m.drawn).numpy(),
             }
+    bns = [b for b in m.model.modules() if isinstance(b, MaskedBatchNorm1d)]
+    if bns and "bn" not in out:
+        out["bn"] = torch.cat([t for b in bns for t in
+                               (b.running_mean, b.running_var)]).numpy()
     return {**out,
+        "sharded": np.asarray(sorted(m.sharded), dtype=str),
         "user_emb": m.user_emb.numpy(), "item_emb": m.item_emb.numpy(),
         "losses": np.asarray([x for s in m.epoch_stats for x in s["losses"]]),
         "overall": np.asarray(m.overall_test_results),
@@ -88,16 +97,27 @@ def summary(m) -> dict:
     }
 
 
+def wait_for(path: str, timeout: float = 200.0) -> None:
+    """Until ``path`` exists (the test writes it while the ranks start,
+    whole, by a rename)."""
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.05)
+
+
 def trainer(data, common: dict, kw: dict, init=None):
     """The trainer of ``kw["model"]`` on ``data`` (MF from ``init``);
     ``kw["jax_init"]``, a pickle of the JAX trainer's (params, net_state),
-    carries its weights."""
+    carries its weights (waited for: :func:`wait_for`)."""
     kw = dict(kw)
     jax_init = kw.pop("jax_init", None)
     args = default_args(**{**common, "device": "cpu", **kw})
     if kw["model"] == "MF":
         return MFTrainer(Config(args, data), init_params=init)
     if jax_init:
+        wait_for(jax_init)
         with open(jax_init, "rb") as f:
             params, state = pickle.load(f)
         extra = {} if state is None else {"init_state": state}
@@ -126,11 +146,15 @@ def run(data, common: dict, kw: dict, init=None):
     ``kw["proto_from"]`` turns its proto term and e-step on from that
     epoch; ``kw["clusters"]``, an npz of (user centroids, user -> cluster,
     item centroids, item -> cluster), holds the proto term on with those
-    clusters and no e-step."""
+    clusters and no e-step. ``kw["draws"]`` (AGNN, GoRec, CLCRec): an npz
+    of the JAX run's draws, replacing the loss's (:func:`inject_draws`)."""
     kw = dict(kw)
     masks, clusters = kw.pop("masks", None), kw.pop("clusters", None)
     epoch = kw.pop("proto_from", None)
+    draws = kw.pop("draws", None)
     m = trainer(data, common, kw, init)
+    if draws:
+        inject_draws(m, draws)
     if clusters:
         c = np.load(clusters)
         m.clusters = tuple(torch.from_numpy(c[k]) for k in
@@ -153,21 +177,64 @@ def run(data, common: dict, kw: dict, init=None):
     return m
 
 
+def inject_draws(m, path: str) -> None:
+    """The loss's draws of each step from ``path``, an npz of the JAX run's
+    global draws stacked by step: AGNN's ``masks`` (steps, 4, n, 2d) and
+    ``normal``, GoRec's ``z``, ``zgc`` and ``keep``, CLCRec's
+    ``rand_index``."""
+    f = np.load(path)
+    steps = iter(range(f[f.files[0]].shape[0]))
+
+    def step():
+        i = next(steps)
+        return {k: torch.from_numpy(f[k][i]) for k in f.files}
+
+    if m.model_name == "CLCRec":
+        m.draw_rand_index = lambda n: step()["rand_index"]
+    elif m.model_name == "AGNN":
+        def agnn(n):
+            d = step()
+            return {"masks": list(d["masks"]), "normal": d["normal"]}
+        m.draw = agnn
+    else:
+        m.draw = lambda n: step()
+
+
 def one_step(data, common: dict, kw: dict) -> dict:
     """The loss of one batch (``kw["batch"]``, an npz of the global host
     batch) with the noise of ``kw["noise"]`` (an npz whose keys are the
-    loss's keyword arguments) injected, and the gradient of every parameter
-    after the sum over the data axis, the sharded tables gathered whole."""
+    loss's keyword arguments, ``"draws/z"`` an entry of the dict ``draws``)
+    injected, and the gradient of every parameter after the sum over the
+    data axis, the sharded tables gathered whole; MetaEmbedding's inner
+    gradient too (``inner``)."""
     kw = dict(kw)
     batch, noise = dict(np.load(kw.pop("batch"))), np.load(kw.pop("noise"))
     m = trainer(data, common, kw)
-    extra = {k: torch.from_numpy(noise[k]) for k in noise.files}
+    extra = {}
+    for k in noise.files:  # "draws/z": extra["draws"]["z"]
+        head, _, key = k.partition("/")
+        x = torch.from_numpy(noise[k])
+        if key:
+            extra.setdefault(head, {})[key] = x
+        else:
+            extra[head] = x
     if "noise_pair" in extra:
         extra["noise_pair"] = tuple(extra["noise_pair"])
+    inner = []
+    if hasattr(m, "inner_grad"):  # MetaEmbedding: record its inner step
+        grad = m.inner_grad
+
+        def recorded(*args):
+            inner.append(grad(*args))
+            return inner[-1]
+
+        m.inner_grad = recorded
     loss = m.loss(m.upload(batch), **extra)
     loss.backward()
     m._reduce_grads()
     out = {"loss": loss.detach().numpy()}
+    if inner:
+        out["inner"] = inner[0].detach().numpy()
     for name, p in m.model.named_parameters():
         g = p.grad
         if name in m.sharded:
