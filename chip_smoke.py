@@ -222,6 +222,34 @@ Phases, each printed with its seconds:
               them in the training file) read by the port's loader (the
               C++ parser) and by ``np.loadtxt``,
               arrays equal, the seconds of each logged (warm reads);
+  scale       the port's ``scale_run`` (``coldrec_tpu_torch/tools``)
+              through its command line at the XING shape (106,881 x
+              20,519, item content 2,738 wide; its dataset built by the
+              tool's ``build_dataset`` on a thread from the start of the
+              script): MF one whole epoch (every batch of 4096) with
+              ``--save_emb 1``, then DropoutNet one whole epoch on its bus,
+              each run a CLI process; held: exit 0, the JAX tool's JSON
+              line per run, every topN x setting x metric finite in both
+              result files, whole epochs, MF's validation NDCG@20 above
+              its untrained tables', every ranked split on the kernel
+              route, ``fused_sweep`` launched in each run (its ``run_end``
+              event's counts go to the ``kernels`` line), and each bus's
+              lists for the first 512 users of each test setting equal to
+              the plain path's by the rule of phase 3; each epoch's split,
+              the test and wall seconds logged;
+  serving     ``ubench_serving`` in its three modes at its defaults (92,107
+              x 270,336, d=64, k=20; the bf16 A/B on phase train's MF
+              bus): p50/p95 of ``RetrievalServer.topk`` at bs 1 to 4096,
+              device ms a batch, fp32 against bf16 and the lists' drift;
+              held: every time finite, each batch size's lists and the
+              bf16 lists equal to the plain path's by the rule of phase 3,
+              the drift equal to a recount;
+  ubench      ``ubench_sweep`` at 1024 x 270,336, d=256 (each kernel, fp32
+              and bf16, bit for bit against its plain version on integer
+              tables first), the matmul ceilings, the plain path, the raw
+              and the padded sweep beside their bounds; ``ubench_spmm`` on
+              its ML and book-crossing slabs, every form held to
+              ``torch.sparse.mm``;
   mesh        the process group and the mesh (``coldrec_tpu_torch/parallel``):
               ranks are subprocesses of this script (``--rank``, started by
               ``launch_ranks`` with the ``COLDREC_*`` variables), all on
@@ -309,10 +337,11 @@ Phases, each printed with its seconds:
 
 Every card-vs-CPU check runs its card side in its phase and hands its CPU
 side (which depends only on the split, the initial weights and the draws)
-to a worker thread (``CHECKS``), which takes half the intra-op threads;
-its comparison runs at a later phase boundary or when the checks are
-joined after the last phase, and a failure there fails the run. Synced
-checks step the card from each of the CPU's recorded states at that point.
+to a worker thread (``CHECKS``), which takes three quarters of the
+intra-op threads; its comparison runs at a later phase boundary or when
+the checks are joined after the last phase, and a failure there fails
+the run. Synced checks step the card from each of the CPU's recorded
+states at that point.
 Then it prints the ``{"kernels": [...]}`` line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises, so the
 exit code is non-zero and no result line is printed. With no card it exits
@@ -384,7 +413,9 @@ from coldrec_tpu_torch.ops.cuda.retrieval import (
 from coldrec_tpu_torch.runtime.checkpoints import (
     load_embeddings, save_embeddings,
 )
-from coldrec_tpu_torch.runtime.eval import EvalSweep, exact_scores, masked_topk
+from coldrec_tpu_torch.runtime.eval import (
+    EvalSweep, exact_scores, mask_bias_vector, masked_topk,
+)
 from coldrec_tpu_torch.runtime.serving import RetrievalServer
 from coldrec_tpu_torch.runtime.trainer import (
     SETTING_SPLITS, Config, rec_lists, three_way_test,
@@ -392,7 +423,9 @@ from coldrec_tpu_torch.runtime.trainer import (
 from coldrec_tpu_torch.tools import exp_blockskip as ebs
 from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
-from coldrec_tpu_torch.tools import tile_shapes
+from coldrec_tpu_torch.tools import scale_run as sr
+from coldrec_tpu_torch.tools import tile_shapes, ubench_serving
+from coldrec_tpu_torch.tools import ubench_spmm, ubench_sweep
 from coldrec_tpu_torch.utils.logging import event_log
 from coldrec_tpu_torch.utils import timing
 from coldrec_tpu_torch.utils.metrics import ranking_evaluation
@@ -566,17 +599,11 @@ LIBRARY_CHUNK = 4096  # queries per mm + topk of phase knn's library yardstick
 # fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
 # float64 (TF32 leaves ~1e-3)
 FP32_RTOL = 1e-5
-# each kernel's launch counter: (wrapper, attribute)
-COUNTERS = {
-    "fused_sweep": (fused_sweep, "launches"),
-    "fused_sweep_bf16": (fused_sweep, "launches_bf16"),
-    "merge_parts": (merge_parts, "launches"),
-    "dot_sweep": (erk.dot_sweep, "launches"),
-    "stream_sweep": (erk.stream_sweep, "launches"),
-    "multiacc_sweep": (ema.multiacc_sweep, "launches"),
-    "skip_sweep": (ebs.skip_sweep, "launches"),
-}
-VARIANTS = ("dot_sweep", "stream_sweep", "multiacc_sweep", "skip_sweep")
+# the variant kernels' wrappers, each counting its launches in ``launches``
+# (the retrieval kernels' counters are ``ret.launch_counts``)
+VARIANTS = {"dot_sweep": erk.dot_sweep, "stream_sweep": erk.stream_sweep,
+            "multiacc_sweep": ema.multiacc_sweep,
+            "skip_sweep": ebs.skip_sweep}
 MESH_SERVE = (SERVE_USERS,) * 4 + (2048,)  # users per request, phase mesh (a)
 MESH_LOSS_RTOL = 1e-5
 MESH_METRIC_TOL = 1e-9  # tests/test_multiprocess.py
@@ -600,6 +627,12 @@ MESH_LOGIT_DRIFT = 1e-3
 MESH_RANK_S = 600  # a rank group's time limit
 SEARCH_TRIALS = 3  # phase search's trials before its resume
 SEARCH_MEM_RTOL = 0.05  # allocated after the last trial vs the first
+SCALE_SHAPE = "xing"  # phase scale's published shape (scale_run.SHAPES)
+SCALE_LIST_USERS = 512  # test users a setting whose lists phase scale holds
+SCALE_LINE = {"scale_run", "epochs", "wall_seconds", "sec_per_epoch"}
+SERVE_ITERS = 20  # requests a batch size in phase serving (the tool's)
+UBENCH_D = 256  # phase ubench's sweep depth (exp_d256_bf16's point)
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
 
@@ -623,8 +656,8 @@ class Checks:
     ``join``, before the ``kernels`` line. A CPU side's exception is raised
     on the main thread there. Until ``start`` every check runs inline, as
     the CPU rehearsals call the phases. torch's CPU kernels release the
-    GIL; the intra-op threads are split between the worker and the main
-    thread (each thread sets its own)."""
+    GIL; the intra-op threads are split between the worker (three
+    quarters) and the main thread (each thread sets its own)."""
 
     def __init__(self):
         self.pool = None
@@ -633,7 +666,10 @@ class Checks:
 
     def start(self, worker_threads=None, main_threads=None):
         n = os.cpu_count() or 1
-        worker = worker_threads or max(1, n // 2)
+        # the main thread's host work (batches, launches) is mostly one
+        # thread's; at half the cores each, the worker lagged the card
+        # phases by ~30 s at the join
+        worker = worker_threads or max(1, n - max(2, n // 4))
         main = main_threads or max(1, n - worker)
         torch.set_num_threads(main)
         self.pool = concurrent.futures.ThreadPoolExecutor(
@@ -743,13 +779,14 @@ def peak_gib(device, base: int) -> float:
 
 
 def reset_launches() -> None:
-    for wrapper, attr in COUNTERS.values():
-        setattr(wrapper, attr, 0)
+    ret.reset_launches()
+    for wrapper in VARIANTS.values():
+        wrapper.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: getattr(wrapper, attr)
-            for name, (wrapper, attr) in COUNTERS.items()}
+    return {**ret.launch_counts(),
+            **{name: w.launches for name, w in VARIANTS.items()}}
 
 
 # ------------------------------------------------------------------ checks
@@ -3019,7 +3056,7 @@ def bench_run(device, shape=None, timeout=900):
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, check=False,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+                          cwd=REPO_DIR)
     if proc.returncode != 0:
         raise AssertionError(f"the bench entry exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
@@ -3338,6 +3375,237 @@ def parse_run(root, ds="bx_synth", cold_object="item"):
         f"{secs['native']:.3f} s, np.loadtxt {secs['loadtxt']:.3f} s "
         f"({secs['loadtxt'] / max(secs['native'], 1e-9):.1f}x); arrays equal")
     return secs
+
+
+# ---------------------------------------- phases scale, serving and ubench
+def scale_build(root, shape=SCALE_SHAPE):
+    """The scale tool's dataset at ``shape`` under ``root``'s workdir,
+    built in this process by the tool's own ``build_dataset``: its stage
+    seconds (the host's work, beside the card phases when run on a
+    thread)."""
+    return sr.build_dataset(os.path.join(root, f"{shape}_workdir"), shape)
+
+
+def scale_split(root, shape=SCALE_SHAPE):
+    """The scale tool's split under ``root``'s workdir, read (the C++
+    parser: after phase build)."""
+    return ColdStartDataset.from_split_dir(
+        os.path.join(root, f"{shape}_workdir", "data"), shape, "item")
+
+
+def scale_lists(data, ue, ie, device, n=SCALE_LIST_USERS, k=K):
+    """The kernel's lists of the first ``n`` users of each test setting
+    (``retrieval_topk``, rated items and the setting's items excluded)
+    against the plain path's, by the rule of ``compare_lists``; returns
+    {setting: (rows, id-equal rows)}."""
+    out = {}
+    for setting in ("all", "cold", "warm"):
+        es = data.eval_splits[SETTING_SPLITS[(setting, "test")]]
+        users = es.users[:n].astype(np.int64)
+        rated = torch.as_tensor(data.rated_padded(users),
+                                device=device).long()
+        bias = torch.as_tensor(mask_bias_vector(
+            data.item_num, data.candidate_mask("item", setting)),
+            device=device)
+        uu = ue[torch.as_tensor(users, device=device)]
+        _, ids = retrieval_topk(uu, ie, rated, bias, k, device=device)
+        ref = ret._exact_rows(uu, ie, rated, bias, k)[1]
+        out[setting] = compare_lists(ue, ie, users, ids, ref)
+    return out
+
+
+def scale_phase(device, root, shape=SCALE_SHAPE, model="DropoutNet",
+                backbone="MF", epochs=1, built=None, read=None,
+                topN=(10, 20), timeout=900):  # topN: the CLI's default
+    """Phase scale: the port's ``scale_run`` through its command line at
+    ``shape`` in ``root``'s workdir: ``backbone`` one whole epoch with
+    ``--save_emb 1`` (the tool's backbone-first rule), then ``model`` one
+    whole epoch on its bus; the dataset is built first by the tool's
+    ``build_dataset`` (``built``: a future of ``scale_build`` started
+    earlier; ``read``: one of ``scale_split``, for the checks below), so
+    the tool finds it. Held: exit 0, the JSON line of each
+    run, every topN x setting x metric finite in both result files, whole
+    epochs (every batch of the warm-train split), the backbone's
+    validation NDCG@max(topN) above its untrained tables', every ranked
+    split on the kernel route, ``fused_sweep`` launched in each run, and
+    the lists of both buses' tables for the first ``SCALE_LIST_USERS``
+    users of each test setting equal to the plain path's (near-ties
+    aside). Logs the build, each epoch's split, test and wall seconds.
+    Returns the runs' launches (their ``run_end`` events)."""
+    device = torch.device(device)
+    workdir = os.path.join(root, f"{shape}_workdir")
+    t = time.perf_counter()
+    stats = built.result() if built is not None else scale_build(root, shape)
+    log(f"  dataset {shape} ({time.perf_counter() - t:.2f} s waited): "
+        + (", ".join(f"{k} {v:.2f}" for k, v in stats.items())
+           if stats else "already built"))
+    events = os.path.join(root, "events_scale.jsonl")
+    if os.path.exists(events):
+        os.remove(events)
+    cmd = [sys.executable, "-m", "coldrec_tpu_torch.tools.scale_run",
+           "--shape", shape, "--workdir", workdir, "--model", model,
+           "--epochs", str(epochs), "--backbone", backbone,
+           "--backbone_epochs", str(epochs), "--device", device.type]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, check=False, cwd=REPO_DIR,
+                          env=dict(os.environ, COLDREC_EVENT_LOG=events))
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"scale_run exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith('{"scale_run"')]
+    if [ln["scale_run"] for ln in lines] != [backbone, model] or any(
+            set(ln) != SCALE_LINE for ln in lines):
+        raise AssertionError(f"scale_run lines {lines}")
+    data = read.result() if read is not None else scale_split(root, shape)
+    batches = -(-data.train_pairs.shape[0] // 4096)
+    runs, current = {}, []
+    for ev in read_events(events):  # each run's events, from its run_start
+        if ev["event"] == "run_start":
+            current = runs.setdefault(ev["model"], [])
+        current.append(ev)
+    launches = {k: 0 for k in ("fused_sweep", "fused_sweep_bf16",
+                               "merge_parts")}
+    top = max(topN)
+    for line in lines:
+        name = line["scale_run"]
+        evs = runs[name]
+        payload = sr.result_payload(os.path.join(workdir, "results",
+                                                 f"{name}.json"))
+        bad = [(tn, s, m) for tn in map(str, topN)
+               for s in ("all", "cold", "warm")
+               for m in ("Hit", "Precision", "Recall", "NDCG")
+               if not np.isfinite(payload["metrics"][tn][s][m]["mean"])]
+        if bad:
+            raise AssertionError(f"scale {name}: metrics not finite {bad}")
+        epoch_evs = [e for e in evs if e["event"] == "epoch"]
+        if [e["batches"] for e in epoch_evs] != [batches] * epochs:
+            raise AssertionError(f"scale {name}: epochs of "
+                                 f"{[e['batches'] for e in epoch_evs]} "
+                                 f"batches, {epochs} of {batches} asked for")
+        log_epochs(evs)
+        routed = routes(evs)
+        if any(r != ["kernel"] for r in routed.values()):
+            raise AssertionError(f"scale {name}: routes {routed}")
+        end = [e for e in evs if e["event"] == "run_end"][0]
+        for k in launches:
+            launches[k] += end["kernel_launches"][k]
+        if device.type == "cuda" and not end["kernel_launches"][
+                "fused_sweep"]:
+            raise AssertionError(f"scale {name}: fused_sweep unlaunched")
+        bus = load_embeddings(os.path.join(workdir, "emb"), shape, "item",
+                              name)
+        ue, ie = (torch.as_tensor(bus[k], device=device)
+                  for k in ("user_emb", "item_emb"))
+        same = scale_lists(data, ue, ie, device)
+        best = max(e["ndcg"] for e in evs if e["event"] == "validation")
+        log(f"  {name}: {line}; test {end['test_seconds']:.3f} s; "
+            f"validation NDCG@{top} best {best:.5f}; kernel launches "
+            f"{end['kernel_launches']}; routes {routed}; lists of "
+            f"{SCALE_LIST_USERS} test users id-equal to the plain path "
+            + ", ".join(f"{s} {e}/{r}" for s, (r, e) in same.items()))
+        if name == backbone:
+            seed = payload["hyperparameters"]["seed"]
+            mf = MF(data.user_num, data.item_num, ue.shape[1], seed=seed,
+                    device=device)
+            untrained = val_ndcg(data, *(x.detach() for x in
+                                         mf.forward_tables()), device, top)
+            if not best > untrained:
+                raise AssertionError(f"scale {name}: validation NDCG@{top} "
+                                     f"{best} <= untrained {untrained}")
+            log(f"    untrained tables' validation NDCG@{top} "
+                f"{untrained:.5f}")
+    log(f"  scale_run {wall:.2f} s for both runs ({data.user_num} x "
+        f"{data.item_num}, {data.train_pairs.shape[0]} warm-train pairs, "
+        f"{batches} batches an epoch); launches {launches}")
+    return launches
+
+
+def serving_phase(device, bus, flags=(), iters=SERVE_ITERS):
+    """Phase serving: ``ubench_serving`` in its three modes (its default
+    shape unless ``flags``), the bf16 A/B on the bus file ``bus``, the
+    launch counts zeroed before and read after. Held: every time finite
+    and positive, p95 >= p50; each batch size's lists (the last request's)
+    equal to the plain path's by the rule of ``compare_lists``; the bf16
+    A/B's lists equal to the plain path's on the bf16-rounded tables, and
+    its drift equal to a recount. Returns the launches."""
+    device = torch.device(device)
+    base = ["--device", device.type, "--iters", str(iters), *flags]
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        e2e = ubench_serving.main(base)
+        dev = ubench_serving.main(base + ["--device_only"])
+        ab = ubench_serving.main(base + ["--bf16_ab", "--emb", bus])
+    launches = launch_counts()
+    log("\n".join("  | " + ln for ln in out.getvalue().splitlines()))
+    times = ([v for r in e2e["e2e"].values() for v in (r["p50_ms"],
+                                                        r["p95_ms"])]
+             + [r["ms"] for r in dev["device_only"].values()]
+             + [ab["bf16_ab"]["fp32_ms"], ab["bf16_ab"]["bf16_ms"]])
+    if not all(np.isfinite(t) and t > 0 for t in times) or any(
+            r["p95_ms"] < r["p50_ms"] for r in e2e["e2e"].values()):
+        raise AssertionError(f"serving times {times}")
+    ue, ie = e2e["user_emb"], e2e["item_emb"]
+    none = torch.zeros(ie.shape[0], dtype=torch.bool, device=device)
+    for bs, r in e2e["e2e"].items():
+        users = torch.as_tensor(r["users"], device=device).long()
+        rated = torch.full((bs, 1), ie.shape[0], dtype=torch.int64,
+                           device=device)
+        ref = ret._exact_rows(ue[users], ie, rated, none, K)[1]
+        rows, equal = compare_lists(ue, ie, r["users"], r["ids"], ref)
+        log(f"  e2e bs {bs}: lists id-equal to the plain path on "
+            f"{equal}/{rows} (others near-ties)")
+    r = ab["bf16_ab"]
+    bu, bi = (ret.bf16_round(ab[k]) for k in ("user_emb", "item_emb"))
+    users = torch.as_tensor(r["users"], device=device).long()
+    rated = torch.full((users.shape[0], 1), bi.shape[0], dtype=torch.int64,
+                       device=device)
+    ref = ret._exact_rows(bu[users], bi, rated, torch.zeros(
+        bi.shape[0], dtype=torch.bool, device=device), K)[1]
+    rows, equal = compare_lists(bu, bi, r["users"], r["ids16"], ref)
+    changed = int(sum(not np.array_equal(a, b)
+                      for a, b in zip(r["ids32"], r["ids16"])))
+    overlap = float(np.mean([len(set(a) & set(b)) / K
+                             for a, b in zip(r["ids32"], r["ids16"])]))
+    if (changed, overlap) != (r["changed"], r["overlap"]):
+        raise AssertionError(f"drift {r['changed']}, {r['overlap']}; "
+                             f"recount {changed}, {overlap}")
+    log(f"  bf16 lists on the bus tables id-equal to the plain bf16 path "
+        f"on {equal}/{rows}; drift recounted; launches {launches}")
+    if device.type == "cuda" and not (launches["fused_sweep"]
+                                      and launches["fused_sweep_bf16"]):
+        raise AssertionError(f"serving left a sweep unlaunched: {launches}")
+    return launches
+
+
+def ubench_phase(device, users=1024, items=VAR_ITEMS, d=UBENCH_D,
+                 slabs=None, iters=10):
+    """Phase ubench: ``ubench_sweep``'s point (``users`` x ``items`` at
+    ``d``, fp32 and bf16; the tool holds each kernel bit for bit to its
+    plain version on integer tables there first), then ``ubench_spmm`` on
+    its slabs (``slabs``: {name: (n, k)}, the tool's by default), each
+    form held to ``torch.sparse.mm``; the launch counts zeroed before and
+    read at the end. Returns (sweep point, slabs, launches)."""
+    device = torch.device(device)
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        point = ubench_sweep.run(device, [users], items, [d],
+                                 ["fp32", "bf16"], iters=iters)[0]
+        spmm = {s: ubench_spmm.run_slab(device, s, n, k, iters=iters)
+                for s, (n, k) in (slabs or ubench_spmm.SLABS).items()}
+    launches = launch_counts()
+    log("\n".join("  | " + ln for ln in out.getvalue().splitlines()))
+    times = [f["ms"] for f in point["forms"].values()] + [
+        f["ms"] for s in spmm.values() for f in s["forms"].values()]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"ubench times {times}")
+    log(f"  launches {launches}")
+    if device.type == "cuda" and not (launches["fused_sweep"]
+                                      and launches["fused_sweep_bf16"]):
+        raise AssertionError(f"ubench left a sweep unlaunched: {launches}")
+    return point, spmm, launches
 
 
 # ------------------------------------------------------------ phase mesh
@@ -4118,6 +4386,18 @@ def mesh_run(device, bx_root, ml_root, bx="bx_synth", ml="ml_synth", d=D,
     return {"fused_sweep": served + trained}
 
 
+def ubench_line(point, dtype) -> dict:
+    """Phase ubench's sweep of one type for the ``kernels`` line: the
+    kernel alone and its padded call, each with its bound, and the matmul
+    ceiling."""
+    f = point["forms"]
+    return {"users": point["users"], "items": point["items"],
+            "d": point["d"], "max_abs_err": point["max_abs_err"][dtype],
+            **{f"{name}_{key}": f[f"{name}_{dtype}"][key]
+               for name in ("kernel_raw", "kernel_padded", "mm_rowmax")
+               for key in ("ms", "bound_ms")}}
+
+
 def build_all():
     """The CUDA library and, on a thread beside it, the host library (the
     sampler and the PPR push); returns (BuildResult, (its path, its
@@ -4142,7 +4422,14 @@ def main() -> int:
     log(f"  {smi} | torch: {kind}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    stack = contextlib.ExitStack()
+    # phase scale's dataset, built on the host beside the phases before it
+    scale_root = stack.enter_context(tempfile.TemporaryDirectory())
+    scale_pool = stack.enter_context(concurrent.futures.ThreadPoolExecutor(
+        1, thread_name_prefix="scale-build"))
+    scale_built = scale_pool.submit(scale_build, scale_root)
     built, host = run_phase("build", build_all)
+    scale_read = scale_pool.submit(scale_split, scale_root)
     log(f"  {built.path.name}: nvcc {built.seconds:.2f} s\n{built.ptxas}")
     log(f"  {host[0].name}: {host[1]:.2f} s")
     hmma = run_phase("sass", tensor_cores, built.path)
@@ -4155,8 +4442,7 @@ def main() -> int:
     exact = run_phase("kernel-int", kernel_int, device)
     launches = run_phase("slice", slice_run, device, *BX)
     knn = run_phase("knn", knn_run, device)
-    stack = contextlib.ExitStack()
-    # phase train's split stays for phase mesh
+    # phase train's split stays for phases serving and mesh
     root = bx_root = stack.enter_context(tempfile.TemporaryDirectory())
     run_phase("train", train_run, device, *BX, root=root,
               content_dim=BX_CONTENT)
@@ -4208,14 +4494,24 @@ def main() -> int:
         fused_launches = run_phase("fused", fused_run, device, root, ml_data)
         search_launches = run_phase("search", search_run, device, root)
         run_phase("parse", parse_run, bx_root)
+        scale_launches = run_phase("scale", scale_phase, device, scale_root,
+                                   built=scale_built, read=scale_read)
+        serving_launches = run_phase(
+            "serving", serving_phase, device,
+            os.path.join(bx_root, "emb", "bx_synth_cold_item_MF_emb.npz"))
+        d256, _, ubench_launches = run_phase("ubench", ubench_phase, device)
         mesh_launches = run_phase("mesh", mesh_run, device, bx_root, root)
     stack.close()
     entry_launches = {name: bench_launches[name] + profile_launches[name]
                       + fused_launches[name] + search_launches[name]
+                      + scale_launches[name] + serving_launches[name]
+                      + ubench_launches[name]
                       for name in bench_launches}
-    log(f"  bench, profile, fused and search phases: {entry_launches} "
-        f"launches (bench {bench_launches}, profile {profile_launches}, "
-        f"fused {fused_launches}, search {search_launches}); mesh phase "
+    log(f"  bench, profile, fused, search, scale, serving and ubench "
+        f"phases: {entry_launches} launches (bench {bench_launches}, "
+        f"profile {profile_launches}, fused {fused_launches}, search "
+        f"{search_launches}, scale {scale_launches}, serving "
+        f"{serving_launches}, ubench {ubench_launches}); mesh phase "
         f"fused_sweep {mesh_launches['fused_sweep']}")
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
@@ -4262,6 +4558,7 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
         "knn_sweeps": knn_sweeps_line,
+        "d256": ubench_line(d256, "fp32"),
     }, {
         "name": "fused_sweep_bf16",
         "route": "cuda",
@@ -4274,6 +4571,7 @@ def main() -> int:
                                "fp32_fma_bound_ms", "library_ms",
                                "library")},
         "ms_512": b16_512["ms"], "hmma": hmma,
+        "d256": ubench_line(d256, "bf16"),
     }, {
         "name": "merge_parts",
         "route": "cuda",

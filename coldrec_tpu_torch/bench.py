@@ -69,8 +69,7 @@ import torch
 from .device import resolve_device
 from .models.mf import MF
 from .ops.cuda.retrieval import (
-    USER_CHUNK, _resolve, fused_sweep, merge_parts, pad_items,
-    retrieval_topk,
+    launch_counts, pad_items, resolved_chunks, retrieval_topk,
 )
 from .ops.spmm import EllGraph, ell_apply
 from .runtime.eval import exact_scores, masked_topk
@@ -135,10 +134,8 @@ def bench_sweep(problem, device, bf16=False, iters=SWEEP_ITERS):
     uk = ue.to(kind)
 
     def sweep():
-        for s in range(0, n_users, USER_CHUNK):
-            e = min(n_users, s + USER_CHUNK)
-            _resolve(*fused_sweep(uk[s:e].contiguous(), items_t, excl_row),
-                     rat[s:e], TOP_K)
+        for _ in resolved_chunks(uk, items_t, excl_row, rat, TOP_K):
+            pass
 
     ms = _events_ms(sweep, dev, iters, REPEATS, statistics.median)
     flops = 2.0 * n_users * n_items * DIM
@@ -422,9 +419,7 @@ def run(device="cuda", shape=None) -> dict:
         "device_count": torch.cuda.device_count() if card else 0,
         "power_limit": power_limit() if card else None,
         # this process's launches of each kernel (every figure above)
-        "kernel_launches": {"fused_sweep": fused_sweep.launches,
-                            "fused_sweep_bf16": fused_sweep.launches_bf16,
-                            "merge_parts": merge_parts.launches},
+        "kernel_launches": launch_counts(),
         "baseline_caveat": (
             "baselines = the PyTorch reference's eval path (TF32-off matmul, "
             "masks, topk) and dense MF training step, run on the same card "

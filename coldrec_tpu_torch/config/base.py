@@ -3,9 +3,10 @@
 
 The same flag names and defaults as the JAX package's CLI, plus ``--device``
 (default ``cuda``). ``--mesh DxM`` lays the ranks of a process group out as
-data x model (``parallel/mesh.py``); MF and LightGCN take it, the models
-whose JAX trainer never sets up a mesh ignore it, and the others refuse it
-(``models/warm_base.py``), naming the ROADMAP item that brings them.
+data x model (``parallel/mesh.py``); every trainer states its
+``mesh_support`` (``models/warm_base.py``): the ``"sharded"`` ones take a
+mesh, the ``"one_device"`` ones (ALDI, FSGNN, M2VAE, MTPR, VBPR, AMR,
+USIM), whose JAX trainer never sets one up, ignore it.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ COMMON_DEFAULTS = dict(
     result_overwrite=False,
     # mid-training checkpoint/resume (empty = off)
     state_ckpt="",
-    # device mesh "DxM" over the ranks of a process group (MF, LightGCN)
+    # device mesh "DxM" over the ranks of a process group (the "sharded"
+    # trainers; the "one_device" ones ignore it)
     mesh="",
     # retrieval sweep: auto / pallas = the hand-written retrieval kernel
     # (its plain version on the CPU), pallas_bf16 = its bf16 mode, xla =

@@ -169,18 +169,69 @@ def cold_start_split(
     )
 
 
+def int_csv_bytes(arr) -> bytes:
+    """The bytes ``np.savetxt(f, arr, fmt="%d", delimiter=",")`` writes for
+    an integer (or bool) array, one row a line (a 1-D array as one column),
+    from whole-array numpy operations: every cell is written right-aligned
+    in the widest cell's places and followed by its comma (a row's last
+    cell by the newline), and the places left of each cell's text are
+    dropped. ``np.savetxt`` formats row by row in Python, ~4 µs a row."""
+    a = np.asarray(arr)
+    if a.ndim == 1:
+        a = a[:, None]
+    if a.ndim != 2:
+        raise ValueError(f"a 1-D or 2-D array, got shape {a.shape}")
+    if a.dtype.kind not in "biu":
+        raise TypeError(f"an integer array, got {a.dtype}")
+    n, m = a.shape
+    if n == 0 or m == 0:
+        return b"\n" * n
+    if a.dtype.kind == "u":
+        mag, neg = a.astype(np.uint64).ravel(), np.zeros(n * m, bool)
+    else:
+        s = a.astype(np.int64).ravel()
+        neg = s < 0
+        # -(-2**63) wraps to itself; as uint64 it is 2**63, the magnitude
+        mag = np.where(neg, -s, s).astype(np.uint64)
+    top = int(mag.max())
+    kind = (np.int32 if top < 2**31 else np.int64 if top < 2**63
+            else np.uint64)
+    mag = mag.astype(kind)
+    wide = len(str(top)) + bool(neg.any())
+    # one plane per place (then the separator), cells along the rows
+    planes = np.empty((wide + 1, n * m), np.uint8)
+    planes[wide].reshape(n, m)[:] = ord(",")
+    planes[wide].reshape(n, m)[:, -1] = ord("\n")
+    left, ten = mag, kind(10)
+    for place in range(wide - 1, -1, -1):
+        q = left // ten
+        planes[place] = (left - q * ten).astype(np.uint8) + ord("0")
+        left = q
+    digits = np.ones(n * m, np.int64)
+    for place in range(1, len(str(top))):
+        digits += mag >= kind(10 ** place)
+    start = wide - digits - neg  # each cell's first place
+    sign = np.flatnonzero(neg)
+    planes[start[sign], sign] = ord("-")
+    chars = np.ascontiguousarray(planes.T)  # (cells, places + separator)
+    keep = np.arange(wide + 1)[None, :] >= np.arange(wide + 1)[:, None]
+    return chars[keep[start]].tobytes()
+
+
 def write_split_dir(
     result: SplitResult, data_dir: str, dataset: str, cold_object: str
 ) -> str:
-    """Write the 7 CSVs + info_dict.pkl in the reference file layout."""
+    """Write the 7 CSVs + info_dict.pkl in the reference file layout, each
+    CSV byte for byte what ``np.savetxt(fmt="%d", delimiter=",")`` writes
+    (:func:`int_csv_bytes`)."""
     base = os.path.join(data_dir, dataset, f"cold_{cold_object}")
     os.makedirs(base, exist_ok=True)
 
     def _write(name: str, arr: np.ndarray):
         path = os.path.join(base, f"{name}.csv")
-        with open(path, "w") as f:
-            f.write("user,item\n")
-            np.savetxt(f, arr, fmt="%d", delimiter=",")
+        with open(path, "wb") as f:
+            f.write(b"user,item\n")
+            f.write(int_csv_bytes(arr))
 
     _write("warm_train", result.warm_train)
     _write("warm_val", result.warm_val)

@@ -29,8 +29,10 @@ Several processes: set ``COLDREC_COORDINATOR`` (host:port of rank 0),
 CLI. ``run`` opens the process group before any device use
 (``parallel/distributed.py``: gloo on the CPU and where ranks share a card),
 each rank computes on ``cuda:(rank % cards)`` (or the CPU with ``--device
-cpu``), ``--mesh DxM`` lays the ranks out (MF and LightGCN; no ``--mesh``:
-data-parallel over every rank), and rank 0 alone writes the result file;
+cpu``), ``--mesh DxM`` lays the ranks out (for the trainers whose
+``mesh_support`` is ``"sharded"``; the ``"one_device"`` ones ignore it; no
+``--mesh``: data-parallel over every rank), and rank 0 alone writes the
+result file;
 the ``__main__`` entry leaves through a barrier and
 ``destroy_process_group``.
 """

@@ -245,6 +245,20 @@ def merge_parts(part_v, part_i, part_g):
 merge_parts.launches = 0
 
 
+def launch_counts() -> dict:
+    """This process's launches of each kernel so far (the counters of
+    ``fused_sweep`` and ``merge_parts``)."""
+    return {"fused_sweep": fused_sweep.launches,
+            "fused_sweep_bf16": fused_sweep.launches_bf16,
+            "merge_parts": merge_parts.launches}
+
+
+def reset_launches() -> None:
+    """Set every counter of ``launch_counts`` to 0."""
+    fused_sweep.launches = fused_sweep.launches_bf16 = 0
+    merge_parts.launches = 0
+
+
 def merge_parts_reference(part_v, part_i, part_g):
     """Plain version of the merge: per (user, class) a stable descending
     sort of the parts' slots in part order (a later part's ids are larger,
@@ -400,6 +414,17 @@ def retrieval_topk(
     return sweep_topk(ue, ie, items_t, excl_row, rated, excl, k, bf16)
 
 
+def resolved_chunks(uk, items_t, excl_row, rated, k: int):
+    """The device work of :func:`sweep_topk`: for each chunk of
+    ``USER_CHUNK`` users of ``uk`` (in the sweep's type), the kernel's
+    sweep and ``_resolve``, yielded as device tensors (vals, ids,
+    suspicious), with no copy to the host."""
+    for s in range(0, uk.shape[0], USER_CHUNK):
+        e = min(uk.shape[0], s + USER_CHUNK)
+        cv, ci, gh = fused_sweep(uk[s:e].contiguous(), items_t, excl_row)
+        yield _resolve(cv, ci, gh, rated[s:e], k)
+
+
 def sweep_topk(ue, ie, items_t, excl_row, rated, excl, k: int,
                bf16: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """The sweep of ``retrieval_topk`` against item operands already
@@ -411,12 +436,9 @@ def sweep_topk(ue, ie, items_t, excl_row, rated, excl, k: int,
     n_users = ue.shape[0]
     if n_users == 0:
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
-    uk = ue.to(items_t.dtype)
     vals_l, ids_l, sus_l = [], [], []
-    for s in range(0, n_users, USER_CHUNK):
-        e = min(n_users, s + USER_CHUNK)
-        cv, ci, gh = fused_sweep(uk[s:e].contiguous(), items_t, excl_row)
-        v, i, sus = _resolve(cv, ci, gh, rated[s:e], k)
+    for v, i, sus in resolved_chunks(ue.to(items_t.dtype), items_t,
+                                     excl_row, rated, k):
         vals_l.append(v.cpu().numpy())
         ids_l.append(i.cpu().numpy())
         sus_l.append(sus.cpu().numpy())

@@ -29,6 +29,7 @@ import torch
 
 from ..data.builder import ColdStartDataset
 from ..device import resolve_device
+from ..ops.cuda.retrieval import launch_counts
 from ..utils.logging import event_log
 from ..utils.metrics import ranking_evaluation
 from .eval import EvalSweep, exact_scores
@@ -364,4 +365,5 @@ class BaseColdStartTrainer(ABC):
             overall=self.overall_test_results,
             cold=self.cold_test_results,
             warm=self.warm_test_results,
+            kernel_launches=launch_counts(),
         )

@@ -10,4 +10,12 @@ their plain PyTorch versions and the tool's command line
 the dot ceiling at other tile shapes and times them
 (``python -m coldrec_tpu_torch.tools.tile_shapes``); ``profile_train``
 splits one MF training step's time on the card
-(``python -m coldrec_tpu_torch.tools.profile_train``)."""
+(``python -m coldrec_tpu_torch.tools.profile_train``).
+
+The JAX tools that drive the system at scale have counterparts here too:
+``scale_run`` (whole CLI runs at a published dataset shape, timed),
+``ubench_serving`` (``RetrievalServer``'s latency and device time, fp32
+against bf16), ``ubench_sweep`` (the sweep beside its ceilings, for
+``ubench_retrieval``, ``exp_bf16_isolate``, ``exp_d256_bf16`` and
+``ubench_kernel_variants``) and ``ubench_spmm`` (the ELL SpMM's forms, for
+``ubench_spmm`` and ``exp_spmm_layouts``)."""

@@ -32,6 +32,20 @@ HBM_BYTES_S = 3.35e12  # HBM3
 SPMM_RTOL = 1e-5  # each SpMM form against torch.sparse.mm, of the largest value
 
 
+def device_name(device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or "cpu"."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def clock_name(device) -> str:
+    """What :func:`run_ms` times on ``device``."""
+    if torch.device(device).type == "cuda":
+        return "CUDA events"
+    return "host clock (the CPU's plain versions, not a device time)"
+
+
 def run_ms(fn, iters: int, device, repeats: int = 3) -> List[float]:
     """Mean milliseconds per call of ``iters`` calls in a row, for each of
     ``repeats`` runs after one warm-up call: CUDA events on a card, the
@@ -177,6 +191,13 @@ def time_sweep_bf16(device, n_users=2048, n_items=270_170, d=64, k=20,
     }
 
 
+def ell_bytes(n, k, d) -> int:
+    """Bytes of an ELL apply of N rows x K entries at width d, each
+    entry's row gathered from memory: the columns and weights, the
+    gathered rows, the output."""
+    return n * k * (4 + 4) + n * k * d * 4 + n * d * 4
+
+
 def time_spmm(device, host, d=64, reps=10, seed=0) -> dict:
     """One apply of the symmetric SpMM of the host COO graph ``host`` (a
     normalized adjacency): its ELL part (``embedding_bag``) and its tail
@@ -245,7 +266,7 @@ def time_spmm(device, host, d=64, reps=10, seed=0) -> dict:
         "library_ms": ms(lambda: torch.sparse.mm(csr, x)),
     }
     tail_rows = int(np.unique(graph.tail_rows.cpu().numpy()).shape[0])
-    ell_bytes = n * k * (4 + 4) + n * k * d * 4 + n * d * 4
+    ell_part_bytes = ell_bytes(n, k, d)
     tail_bytes = t * (4 + 4 + 4) + t * d * 4 + tail_rows * d * 4
     # every byte read or written once: x, the edges' columns and values,
     # the output (torch.sparse.mm comes under the gather bound above: the
@@ -253,9 +274,9 @@ def time_spmm(device, host, d=64, reps=10, seed=0) -> dict:
     once_bytes = n * d * 4 + host.nnz * (4 + 4) + n * d * 4
     out.update(
         n=n, k=k, tail=t,
-        bound_ms=(ell_bytes + tail_bytes) / HBM_BYTES_S * 1e3,
+        bound_ms=(ell_part_bytes + tail_bytes) / HBM_BYTES_S * 1e3,
         once_bound_ms=once_bytes / HBM_BYTES_S * 1e3,
-        ell_bound_ms=ell_bytes / HBM_BYTES_S * 1e3,
+        ell_bound_ms=ell_part_bytes / HBM_BYTES_S * 1e3,
         tail_bound_ms=tail_bytes / HBM_BYTES_S * 1e3,
         max_abs_err=err, scale=scale,
         repeatable=bool(torch.equal(op(x), first)))

@@ -539,3 +539,51 @@ def test_parallel_modules_import_without_jax(tmp_path):
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "PARALLEL IMPORTS OK" in proc.stdout
+
+
+SCALE_TOOLS = ("coldrec_tpu_torch.tools.scale_run",
+               "coldrec_tpu_torch.tools.ubench_serving",
+               "coldrec_tpu_torch.tools.ubench_sweep",
+               "coldrec_tpu_torch.tools.ubench_spmm")
+
+
+def test_scale_and_ubench_tools_import_without_jax(tmp_path):
+    """The ports of the JAX tools ``scale_run``, ``ubench_serving``, the
+    sweep and SpMM microbenchmarks are among the files checked above and
+    import in a process where jax and coldrec_tpu are blocked."""
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in SCALE_TOOLS:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = "import importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in SCALE_TOOLS) + (
+        "print('TOOL IMPORTS OK')\n")
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TOOL IMPORTS OK" in proc.stdout
+
+
+def test_scale_and_ubench_tools_default_to_the_card(tmp_path):
+    """Without ``--device`` each tool asks for the card and, with none,
+    raises before it builds, writes or times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run on it")
+    from coldrec_tpu_torch.tools import (
+        scale_run, ubench_serving, ubench_spmm, ubench_sweep,
+    )
+
+    tiny = ["--users", "8", "--items", "256", "--d", "8"]
+    calls = [
+        lambda: scale_run.main(["--model", "MF", "--shape", "xing",
+                                "--workdir", str(tmp_path / "w")]),
+        lambda: ubench_serving.main(tiny),
+        lambda: ubench_serving.main(tiny + ["--device_only"]),
+        lambda: ubench_serving.main(tiny + ["--bf16_ab"]),
+        lambda: ubench_sweep.main(tiny),
+        lambda: ubench_sweep.run("cuda", [8], 256, [8], ["fp32"]),
+        lambda: ubench_spmm.main(["--n", "100", "--k", "4"]),
+        lambda: ubench_spmm.run_slab("cuda", "ml", 100, 4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "w").exists()
