@@ -75,7 +75,7 @@ Phases, each printed with its seconds:
   cold        the cold-start models through the CLI on that split and bus
               (d=64, bs 4096; here and in phases content, recon, usim,
               graph and graph-user each run is handed the split read once
-              by its phase and trains the first quarter of every epoch,
+              by its phase and trains the first eighth of every epoch,
               ``EPOCH_STEPS`` of 215 batches, USIM ``USIM_EPOCH_STEPS`` of
               53): DropoutNet (hidden 200/100, n_dropout 0.5),
               GAR, ALDI, DeepMusic, DUIF and Heater 1 epoch each, each
@@ -121,18 +121,27 @@ Phases, each printed with its seconds:
   usim        USIM through the CLI on that split and MF bus at its
               published widths (92,108 actions: the 92,107 users and the
               stop token; max_time 7, k 10; d=64, bs 4096: 53 batches),
-              one epoch of 14 batches, checked as in phase content, each epoch's split
-              logged (host batches, step enqueue, device step, the greedy
-              inference of the 54,034 cold items, validation, the test);
+              one epoch of 7 batches, checked as in phase content, each
+              epoch's split logged (host batches, step enqueue, device
+              step, the greedy inference of the 54,034 cold items,
+              validation, the test);
               then one step at bs 256 on the card against the CPU from
               the same weights and draws (rollout actions equal, losses,
               nets) after the greedy inference of 2,048 cold items
               (actions equal, states); phase usim-split, after the checks
-              are joined (below), splits one batch step by CUDA events
-              into its phases (the hoisted top-ks, the 3 x 7 rollout
-              steps, the PPO targets, each of the 5 PPO iterations, the
-              termination step) and times the inference of one 4096-item
-              chunk, each beside its bound;
+              are joined (below), runs ``tools/profile_usim.py``'s
+              functions on that run's trainer: ``_eval_tables`` twice and
+              the validation sweep (launch counts zeroed just before and
+              read just after: ``fused_sweep`` must have launched), one
+              batch step split by CUDA events into its phases (the
+              hoisted top-ks, the 3 x 7 rollout steps, the PPO targets,
+              each of the 5 PPO iterations, the termination step) and the
+              inference of one 4096-item chunk, each beside its bound,
+              ``_rollouts`` alone, the in-place ceilings (the chained
+              4096 x 65 @ 65 x 92,107 product with a logsumexp, with a
+              top-10) and each phase's floor fraction; held: the phases'
+              sum equal to the step's own span within 1e-3, every time
+              finite;
   graph       the graph backbones through the CLI on that split (d=64, bs
               4096, --layers 2), one epoch each: LightGCN, NGCF, SimGCL,
               XSimGCL and NCL (BASELINE config 2's model and config 5's
@@ -194,6 +203,20 @@ Phases, each printed with its seconds:
               positive, its ``device_kind`` this card's; then the kernel's
               lists at both of its sweep shapes (4096 x 270,336 and 6,040 x
               3,706) held to the plain route's by the rule of phase 3;
+  mfstep      ``tools/profile_train.py``'s modes at the JAX tools'
+              problems, launch counts zeroed just before and read just
+              after: ``--split`` (MF at 92,107 x 270,170, d=64, bs 4096:
+              the full step, through the sorted lookup, grad only, Adam
+              only, forward only, ms a step by the two-point difference;
+              the gradient A/B), ``--chain`` (the stacked step over 64,
+              32, 64, 32 batches, 5 reps each) and ``--scatter`` (12,288
+              rows into 270,170 x 64: ``index_add_``, the gather's
+              backward, sorted, duplicates combined, each held to
+              ``np.add.at`` within 1e-3); then ``exp_fused_steps`` for
+              LightGCN on phase scale's XING dataset, K 32: the sequential
+              steps and the ``--fused_steps`` path held to the JAX tool's
+              limits (losses rtol 2e-4, weights rtol 3e-4 atol 3e-6), then
+              timed; every time finite;
   profile     on a split of ``synthetic_interactions`` at MovieLens-1M
               shape (every split through the kernel, unlike phase
               cold-signal's): MF one epoch through the CLI, plain, with
@@ -421,8 +444,10 @@ from coldrec_tpu_torch.runtime.trainer import (
     SETTING_SPLITS, Config, rec_lists, three_way_test,
 )
 from coldrec_tpu_torch.tools import exp_blockskip as ebs
+from coldrec_tpu_torch.tools import exp_fused_steps as efs
 from coldrec_tpu_torch.tools import exp_multiacc as ema
 from coldrec_tpu_torch.tools import exp_retrieval_kernels as erk
+from coldrec_tpu_torch.tools import profile_train, profile_usim
 from coldrec_tpu_torch.tools import scale_run as sr
 from coldrec_tpu_torch.tools import tile_shapes, ubench_serving
 from coldrec_tpu_torch.tools import ubench_spmm, ubench_sweep
@@ -430,7 +455,8 @@ from coldrec_tpu_torch.utils.logging import event_log
 from coldrec_tpu_torch.utils import timing
 from coldrec_tpu_torch.utils.metrics import ranking_evaluation
 from coldrec_tpu_torch.utils.timing import (
-    sweep_bound, time_ms, time_sweep, time_sweep_bf16,
+    peak_gib, peak_start, sweep_bound, sync as _sync, time_ms, time_sweep,
+    time_sweep_bf16,
 )
 
 # the whole run, under the 1200 s it may take at most. With phase recon
@@ -480,11 +506,11 @@ STEP_ATOL = 1e-5
 STEP_FLIPS = 1e-5
 STEP_MAX_ERR = 2 * 1e-3 * STEP_CHECK
 # The models' CLI runs at book-crossing shape (phases cold, content, recon,
-# usim, graph, graph-user) train the first quarter of each epoch: 54 of its
-# 215 batches (``main.run(epoch_steps=)``), USIM 14 of its 53; the full
-# widths stay (PERF.md §4)
-EPOCH_STEPS = 54
-USIM_EPOCH_STEPS = 14
+# usim, graph, graph-user) train the first eighth of each epoch: 27 of its
+# 215 batches (``main.run(epoch_steps=)``), USIM 7 of its 53; phase profile
+# 27 of its 123; the full widths stay (PERF.md §4)
+EPOCH_STEPS = 27
+USIM_EPOCH_STEPS = 7
 # Phase cold: the cold-start models through the CLI on phase train's split
 # and MF bus: (model, epochs, flags). Book-crossing's item content has 416
 # columns (BASELINE.md:17).
@@ -631,6 +657,8 @@ SCALE_SHAPE = "xing"  # phase scale's published shape (scale_run.SHAPES)
 SCALE_LIST_USERS = 512  # test users a setting whose lists phase scale holds
 SCALE_LINE = {"scale_run", "epochs", "wall_seconds", "sec_per_epoch"}
 SERVE_ITERS = 20  # requests a batch size in phase serving (the tool's)
+MFSTEP_K = 32  # phase mfstep's fused steps (exp_fused_steps' default)
+MFSTEP_ITERS = 1  # timed runs of each path in phase mfstep (the tool's 3)
 UBENCH_D = 256  # phase ubench's sweep depth (exp_d256_bf16's point)
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -754,28 +782,6 @@ def smi_line(query: str = "name,power.limit") -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def peak_start(device) -> int:
-    """Zero the card's peak memory counter; returns the bytes allocated now,
-    which ``peak_gib`` leaves out (tensors of earlier phases and of the
-    checks still pending)."""
-    if device.type != "cuda":
-        return 0
-    torch.cuda.reset_peak_memory_stats(device)
-    return torch.cuda.memory_allocated(device)
-
-
-def peak_gib(device, base: int) -> float:
-    """GiB allocated at the peak since ``peak_start``, above its ``base``."""
-    if device.type != "cuda":
-        return 0.0
-    return (torch.cuda.max_memory_allocated(device) - base) / 2**30
 
 
 def reset_launches() -> None:
@@ -2070,11 +2076,10 @@ def usim_run(device, root, ds="bx_synth", d=D, bs=4096, topN=(10, 20),
     checked by ``graph_cli`` (launches, fallback, peak memory, each split's
     route, lists held to the plain path), each epoch's split logged (host
     batches, step enqueue, device step, inference of the cold rows,
-    validation; the test); then one batch step split into its phases
-    beside their bounds (``usim_step_split``) and the card-vs-CPU step
-    (``usim_check``). ``usim_flags`` ({flag: value}) narrow the model for
-    the CPU rehearsal. Returns the launches and the CLI run's trainer for
-    ``usim_step_split``, which ``main`` runs after the checks are joined:
+    validation; the test); then the card-vs-CPU step (``usim_check``).
+    ``usim_flags`` ({flag: value}) narrow the model for the CPU rehearsal.
+    Returns the launches and the CLI run's trainer for
+    ``usim_split_phase``, which ``main`` runs after the checks are joined:
     the worker's CPU sides would slow the host's enqueue while it is
     timed."""
     device = torch.device(device)
@@ -2099,91 +2104,33 @@ def usim_run(device, root, ds="bx_synth", d=D, bs=4096, topN=(10, 20),
     return r["launches"], kept[-1]
 
 
-def usim_bounds(n_user, d, bs, max_time, n_ppo, blk):
-    """{phase: (products, plane passes, rows)} of a USIM batch step as the
-    code runs it, and the bound of each (``sweep_bound``): a product is
-    2 * rows * n_user * d fp32 operations, a pass reads or writes one
-    (rows, n_user) fp32 plane."""
-    steps = usim_mod.ROLLOUTS * max_time
-    t_rows = steps * bs
-    phases = {
-        # z and the target score of the batch's items, each with a top-k
-        "hoisted top-ks": (2, 4, bs),
-        # each step: sim (top-k) and z (logsumexp, max, argmax)
-        "rollouts": (2 * steps, 4 * steps, bs),
-        # the target actor's z over every transition, its logsumexp
-        "ppo targets": (1, 2, t_rows),
-        **{f"ppo {i + 1}": (2, 4, t_rows) for i in range(n_ppo)},
-        "termination": (0, 0, bs),
-        # each step: z, its logsumexp and max
-        "inference chunk": (max_time, 2 * max_time, blk),
-    }
-    out = {}
-    for name, (prods, passes, rows) in phases.items():
-        flops = prods * 2.0 * rows * n_user * d
-        bytes_moved = passes * 4.0 * rows * n_user
-        ms, by = sweep_bound(flops, bytes_moved)
-        out[name] = {"flops": flops, "bytes": bytes_moved, "bound_ms": ms,
-                     "bound_by": by}
-    return out
+# the step split and its bounds live in the tool (``profile_usim``)
+usim_step_split = profile_usim.usim_step_split
 
 
-def usim_step_split(tm, seed=0, blk=4096):
-    """One batch step of USIM trainer ``tm`` (after one warm-up step)
-    split into its phases by CUDA events at the model's marks (the host
-    clock on the CPU): the hoisted top-ks, the rollouts, the PPO targets,
-    each PPO iteration and the termination step, each phase's host enqueue
-    beside its device time and its bound; then the greedy inference of one
-    ``blk``-item chunk of cold items; the card's peak memory over the
-    step. Returns {phase: numbers}."""
-    device, bs, d = tm.device, tm.batch_size, tm.emb_size
-    cuda = device.type == "cuda"
-    m = tm.model
-    tm.host_rng = np.random.default_rng(seed)
-    batches = [tm.upload(b) for _, b in zip(range(2), tm.batches())]
-    tm.train_step(batches[0])
-    _sync(device)
-    base = peak_start(device)
-    m.marks = []
-    t0 = time.perf_counter()
-    tm.train_step(batches[-1])
-    enqueue_s = time.perf_counter() - t0
-    _sync(device)
-    marks, m.marks = m.marks, None
-    peak = peak_gib(device, 0)  # the trainer's tables and content with it
-    step_peak = peak_gib(device, base)
-    content = m.content[tm.cold_idx[:blk]]
-    bounds = usim_bounds(m.n_user, d, bs, m.max_time, m.n_ppo,
-                         content.shape[0])
-    out = {}
-    for (_, h0, e0), (name, h1, e1) in zip(marks[:-1], marks[1:]):
-        dev_ms = e0.elapsed_time(e1) if cuda else (h1 - h0) * 1e3
-        out[name] = {"ms": dev_ms, "host_ms": (h1 - h0) * 1e3,
-                     **bounds[name]}
-    out["inference chunk"] = {
-        "ms": time_ms(lambda: m._infer(m.actor, content), 3, device,
-                          repeats=1), **bounds["inference chunk"]}
-    t_rows = usim_mod.ROLLOUTS * m.max_time * bs
-    step_ms = sum(v["ms"] for k, v in out.items() if k != "inference chunk")
-    bound_ms = sum(v["bound_ms"] for k, v in out.items()
-                   if k != "inference chunk")
-    log(f"  USIM step split at bs {bs} x {m.n_user} actions, d={d} "
-        f"(max_time {m.max_time}, k {m.k}, {m.n_ppo} PPO iterations over "
-        f"{t_rows} transitions, chunked: "
-        f"{t_rows * m.n_user > m._DENSE_OPT_ELEMS}"
-        f"): step {step_ms:.3f} ms on the device, {enqueue_s * 1e3:.3f} ms "
-        f"of host enqueue (to its return), bound {bound_ms:.3f} ms; peak "
-        f"card memory {peak:.2f} GiB, {step_peak:.2f} GiB of it the step's")
-    for name, v in out.items():
-        log(f"    {name}: {v['ms']:.3f} ms"
-            + (f" (host {v['host_ms']:.3f} ms)" if "host_ms" in v else "")
-            + f", {100 * v['ms'] / step_ms:.1f}% of the step; bound "
-            f"{v['bound_ms']:.3f} ms ({v['bound_by']}: {v['flops']:.3e} "
-            f"FLOP, {v['bytes']:.3e} B)")
-    out["step"] = {"ms": step_ms, "enqueue_ms": enqueue_s * 1e3,
-                   "bound_ms": bound_ms, "peak_gib": peak,
-                   "step_peak_gib": step_peak}
-    return out
+def usim_split_phase(tm, ceiling_iters=profile_usim.CEILING_ITERS):
+    """Phase usim-split on phase usim's trainer ``tm``, through
+    ``profile_usim``: ``_eval_tables`` twice (the second timed: the
+    inference of the cold items an epoch) and the validation sweep, its
+    launch counts zeroed just before and read just after; then one batch
+    step split into its phases beside their bounds
+    (``usim_step_split``), ``_rollouts`` alone, the in-place ceilings and
+    each phase's floor fraction; held: the phases' sum against the step's
+    own events, every time finite, ``fused_sweep`` launched (on the card).
+    Returns (report, launches)."""
+    ev = profile_usim.eval_report(tm, reps=2)
+    report = profile_usim.step_report(tm, ev["eval_tables_s"][1] * 1e3,
+                                      iters=ceiling_iters)
+    times = [*report["phases_ms_per_batch"].values(),
+             *report["ceilings_ms"].values(), report["rollout_only_ms"],
+             report["inference_ms_per_epoch"]]
+    if not all(np.isfinite(t) for t in times):
+        raise AssertionError(f"USIM split: times not finite {times}")
+    if tm.device.type == "cuda" and not ev["launches"]["fused_sweep"]:
+        raise AssertionError("USIM split: the validation sweep launched no "
+                             "fused_sweep")
+    log(f"  USIM roofline: {json.dumps(report)}")
+    return report, ev["launches"]
 
 
 def usim_check(device, data, root, d=D, bs=USIM_CHECK_BS, seed=0,
@@ -3104,6 +3051,56 @@ def bench_run(device, shape=None, timeout=900):
     if cuda and not (launches["fused_sweep"] and launches["fused_sweep_bf16"]):
         raise AssertionError(f"the bench left a sweep unlaunched: {launches}")
     return line, launches
+
+
+def mfstep_phase(device, root, shape=SCALE_SHAPE, built=None, read=None,
+                 mf=None, scatter=None, k=MFSTEP_K, iters=MFSTEP_ITERS,
+                 flags=()):
+    """Phase mfstep: the MF step tools at the JAX tools' problems (``mf``
+    and ``scatter``: keyword sizes for a smaller one), launch counts
+    zeroed just before and read just after: ``profile_train``'s split
+    (full step, sorted lookup, grad, Adam, forward; the gradient A/B),
+    its chain (64, 32, 64, 32 stacked steps, 5 reps each) and its scatter
+    variants (each held to ``np.add.at``, max error below 1e-3, inside the
+    tool); then ``exp_fused_steps`` for LightGCN at ``shape`` on phase
+    scale's workdir under ``root`` (``built``, ``read``: phase scale's
+    futures of the dataset and its split; ``flags``: CLI flags of the
+    trainer), K ``k``: the sequential steps and the ``--fused_steps K``
+    path held to the JAX tool's limits, then timed (best of ``iters``).
+    Every time must be finite. Returns the launches."""
+    device = torch.device(device)
+    mf = dict(mf or {})
+    reset_launches()
+    split = profile_train.split(device, **mf)
+    chain = profile_train.chain(device, **mf)
+    scat = profile_train.scatter(device, **(scatter or {}))
+    stats = built.result() if built is not None else scale_build(root, shape)
+    data = read.result() if read is not None else scale_split(root, shape)
+    tm = efs.build_trainer("LightGCN", shape,
+                           os.path.join(root, f"{shape}_workdir"), device,
+                           data=data, flags=flags)
+    fused = efs.run(tm, k, iters)
+    here = launch_counts()
+    launches = {name: here[name] for name in ("fused_sweep",
+                                              "fused_sweep_bf16",
+                                              "merge_parts")}
+    times = [*split.values(), *(t for ts in chain.values() for t in ts),
+             *(v["ms"] for v in scat.values()), fused["sequential_ms"],
+             fused["fused_ms"]]
+    if not all(np.isfinite(t) for t in times):
+        raise AssertionError(f"mfstep: times not finite {times}")
+    log(f"  mfstep [{timing.device_name(device)}]: split (ms a step) "
+        + ", ".join(f"{name} {v:.4f}" for name, v in split.items())
+        + "; chain (ms a run, sorted) "
+        + "; ".join(f"{n}: {[round(t, 2) for t in ts]}"
+                    for n, ts in chain.items())
+        + "; scatter (ms, max|err|) "
+        + ", ".join(f"{name} {v['ms']:.4f} {v['max_abs_err']:.2e}"
+                    for name, v in scat.items())
+        + f"; fused steps LightGCN {shape} (dataset "
+        f"{'already built' if stats is None else 'built'}) {fused}; "
+        f"launches {launches}")
+    return launches
 
 
 def ml_split(root, ds="ml_synth", n_users=ML[0], n_items=ML[1],
@@ -4485,9 +4482,12 @@ def main() -> int:
     } for tag, r in knn["shapes"].items()]
     variants = run_phase("variants", variants_run, device)
     run_phase("checks", CHECKS.join)
-    run_phase("usim-split", usim_step_split, usim_trainer)
+    _, usim_split_launches = run_phase("usim-split", usim_split_phase,
+                                       usim_trainer)
     del usim_trainer
     bench_line, bench_launches = run_phase("bench", bench_run, device)
+    mfstep_launches = run_phase("mfstep", mfstep_phase, device, scale_root,
+                                built=scale_built, read=scale_read)
     with tempfile.TemporaryDirectory() as root:
         ml_data = run_phase("ml-split", ml_split, root)
         profile_launches = run_phase("profile", profile_run, device, root)
@@ -4502,17 +4502,21 @@ def main() -> int:
         d256, _, ubench_launches = run_phase("ubench", ubench_phase, device)
         mesh_launches = run_phase("mesh", mesh_run, device, bx_root, root)
     stack.close()
-    entry_launches = {name: bench_launches[name] + profile_launches[name]
+    entry_launches = {name: usim_split_launches[name]
+                      + bench_launches[name] + mfstep_launches[name]
+                      + profile_launches[name]
                       + fused_launches[name] + search_launches[name]
                       + scale_launches[name] + serving_launches[name]
                       + ubench_launches[name]
                       for name in bench_launches}
-    log(f"  bench, profile, fused, search, scale, serving and ubench "
-        f"phases: {entry_launches} launches (bench {bench_launches}, "
-        f"profile {profile_launches}, fused {fused_launches}, search "
-        f"{search_launches}, scale {scale_launches}, serving "
-        f"{serving_launches}, ubench {ubench_launches}); mesh phase "
-        f"fused_sweep {mesh_launches['fused_sweep']}")
+    log(f"  usim-split, bench, mfstep, profile, fused, search, scale, "
+        f"serving and ubench phases: {entry_launches} launches (usim-split "
+        f"{usim_split_launches}, bench {bench_launches}, mfstep "
+        f"{mfstep_launches}, profile {profile_launches}, fused "
+        f"{fused_launches}, search {search_launches}, scale "
+        f"{scale_launches}, serving {serving_launches}, ubench "
+        f"{ubench_launches}); mesh phase fused_sweep "
+        f"{mesh_launches['fused_sweep']}")
     t = run_phase("timing", time_sweep, device)
     t512 = time_sweep(device, n_users=SERVE_USERS)
     for n, r in ((2048, t), (SERVE_USERS, t512)):

@@ -18,4 +18,9 @@ The JAX tools that drive the system at scale have counterparts here too:
 against bf16), ``ubench_sweep`` (the sweep beside its ceilings, for
 ``ubench_retrieval``, ``exp_bf16_isolate``, ``exp_d256_bf16`` and
 ``ubench_kernel_variants``) and ``ubench_spmm`` (the ELL SpMM's forms, for
-``ubench_spmm`` and ``exp_spmm_layouts``)."""
+``ubench_spmm`` and ``exp_spmm_layouts``). So do the MF step tools:
+``profile_train --split`` / ``--chain`` / ``--scatter`` (for
+``exp_mf_step_decomp``, ``exp_grad_sorted``, ``check_mfstep`` and
+``exp_scatter_variants``) and ``exp_fused_steps``; and the USIM tools:
+``profile_usim`` (for ``profile_usim``, ``profile_usim_bx`` and
+``usim_roofline``)."""

@@ -77,6 +77,38 @@ def time_ms(fn, iters: int, device, repeats: int = 3) -> float:
     return min(run_ms(fn, iters, device, repeats))
 
 
+def two_point_ms(fn, iters: int, device, repeats: int = 3) -> float:
+    """Milliseconds a call of ``fn`` adds to a run of calls in a row, by the
+    JAX tools' two-point difference (T(iters) - T(iters // 2)) / (iters //
+    2), each T the best of ``repeats`` runs (:func:`time_ms`): what a run
+    costs once (its first launch, its last sync) cancels."""
+    half = iters // 2
+    return (time_ms(fn, iters, device, repeats) * iters
+            - time_ms(fn, half, device, repeats) * half) / half
+
+
+def sync(device) -> None:
+    """Wait for the card (nothing on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_start(device) -> int:
+    """Zero the card's peak memory counter; returns the bytes allocated now,
+    which ``peak_gib`` leaves out (tensors allocated before)."""
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def peak_gib(device, base: int) -> float:
+    """GiB allocated at the peak since ``peak_start``, above its ``base``."""
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated(device) - base) / 2**30
+
+
 def sweep_bound(flops, bytes_moved):
     """(ms, "operations" or "bytes"): fp32 operations at 67 TFLOP/s (outside
     the tensor cores) against bytes at 3.35 TB/s, the larger."""

@@ -587,3 +587,51 @@ def test_scale_and_ubench_tools_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert not (tmp_path / "w").exists()
+
+
+STEP_TOOLS = ("coldrec_tpu_torch.tools.profile_train",
+              "coldrec_tpu_torch.tools.exp_fused_steps",
+              "coldrec_tpu_torch.tools.profile_usim")
+
+
+def test_step_tools_import_without_jax(tmp_path):
+    """The ports of the JAX package's MF step tools and USIM tools are among
+    the files checked above and import in a process where jax and
+    coldrec_tpu are blocked."""
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in STEP_TOOLS:
+        assert mod.replace(".", "/") + ".py" in files, mod
+    code = "import importlib\n" + "".join(
+        f"importlib.import_module({m!r})\n" for m in STEP_TOOLS) + (
+        "print('STEP TOOL IMPORTS OK')\n")
+    proc = _run_blocked(code, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "STEP TOOL IMPORTS OK" in proc.stdout
+
+
+def test_step_tools_default_to_the_card(tmp_path):
+    """Without ``--device`` each mode of each tool asks for the card and,
+    with none, raises before it builds, writes or times anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run on it")
+    from coldrec_tpu_torch.tools import (
+        exp_fused_steps, profile_train, profile_usim,
+    )
+
+    calls = [
+        lambda: profile_train.main(["--split"]),
+        lambda: profile_train.main(["--chain"]),
+        lambda: profile_train.main(["--scatter"]),
+        lambda: profile_train.split("cuda", 8, 8, 4, 4, iters=2),
+        lambda: profile_train.MFStep("cuda", 8, 8, 4),
+        lambda: exp_fused_steps.main(["--workdir", str(tmp_path / "f")]),
+        lambda: exp_fused_steps.build_trainer("MF", "xing",
+                                              str(tmp_path / "f"), "cuda"),
+        lambda: profile_usim.main(["--workdir", str(tmp_path / "u"),
+                                   "--out", str(tmp_path / "u.json")]),
+        lambda: profile_usim.build_trainer(str(tmp_path / "u"), "cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not any(tmp_path.iterdir())
