@@ -100,7 +100,9 @@ Phases, each printed with its seconds:
               (second order) on the card against the same steps on the
               CPU, held as phase cold holds DropoutNet's, VBPR's free run
               in float64 on both devices and its float32 steps each from
-              the CPU's state (``SYNCED_STEPS``);
+              the CPU's state (``SYNCED_STEPS``), element by element: an
+              element that float32 cannot sign is named and bounded
+              (``synced_step_gap``);
   recon       the reconstruction-family models through the CLI on that
               split and MF bus (d=64, bs 4096, one epoch each): CCFCRec
               and M2VAE (``ccfcrec_batches``: 983,040 and 1,642,496
@@ -621,6 +623,21 @@ USIM_INFER_CHECK = 2048
 # in float64 on both devices instead, where the rounding noise lies far
 # below the optimizers' eps (1e-10, 1e-8) and cannot be amplified.
 SYNCED_STEPS = ("CCFCRec", "VBPR", "SimGCL")
+# CCFCRec's and VBPR's synced steps are held element by element
+# (``synced_step_gap``). An element whose card and CPU updates differ by
+# more than STEP_ATOL is excused only where float32 cannot sign its
+# gradient: from the CPU step's own float32 state, the float64 gradient
+# g64 lies within UNSIGNED_RATIO times the CPU's float32 rounding error
+# |g32 - g64| of 0 (the CPU's float32 gradient keeps fewer than 6 of its
+# 24 bits). The card sums in another order: at VBPR's PQ2[62451, 60] its
+# error was up to 54 times the CPU's (PERF.md §6). Such an element moves
+# by ~lr * sign(g) on either side, so it may part by up to 2 * lr. Per
+# weight and step at most STEP_FLIPS of the elements are excused, rounded
+# up (VBPR's W, 26,624 elements, has one at its first Adam step: W[97,
+# 58], |g| 1.7e-7 against eps 1e-8); every other element is held in
+# relative norm to COLD_NORM_RTOL.
+UNSIGNED_RATIO = 64.0
+NAMED_PER_STEP = 8  # elements over STEP_ATOL a synced step's line names
 LIBRARY_CHUNK = 4096  # queries per mm + topk of phase knn's library yardstick
 # fp32 products with TF32 off: a 4096 x 64 x 4096 product within this of
 # float64 (TF32 leaves ~1e-3)
@@ -703,9 +720,9 @@ class Checks:
         self.pool = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="cpu-checks",
             initializer=torch.set_num_threads, initargs=(worker,))
-        log(f"  os.cpu_count() {n}: the checks' CPU sides on a worker "
-            f"thread with {worker} intra-op threads, the main thread "
-            f"{main}")
+        log(f"  os.cpu_count() {n} ({cpu_line()}): the checks' CPU sides "
+            f"on a worker thread with {worker} intra-op threads, the main "
+            f"thread {main}")
 
     def submit(self, name: str, cpu_fn, finish) -> None:
         """Run ``cpu_fn()`` on the worker (inline before ``start``), then
@@ -759,6 +776,24 @@ class Checks:
 
 
 CHECKS = Checks()
+
+
+def cpu_line() -> str:
+    """The host CPU's model name and the vector code torch's CPU kernels
+    run (``torch.backends.cpu.get_cpu_capability``)."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name") or (
+        f"{info.get('vendor_id', 'unknown vendor')} family "
+        f"{info.get('cpu family', '?')} model {info.get('model', '?')}")
+    return (f"{name}, torch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}")
 
 
 def check_budget(name: str) -> None:
@@ -1502,9 +1537,114 @@ def as_float64(t) -> None:
     t.optimizer.load_state_dict(state)
 
 
+def _grads(module) -> dict:
+    """A module's gradients by name, copied to the host."""
+    return {k: v.grad.detach().cpu().clone()
+            for k, v in module.named_parameters() if v.grad is not None}
+
+
+def step_grads(t, weights: dict, batch, kw) -> dict:
+    """The gradient of trainer ``t``'s loss on ``batch`` at ``weights`` (a
+    state dict, cast to ``t``'s dtype as it loads), by name, on the host."""
+    t.model.load_state_dict(weights)
+    t.model.zero_grad(set_to_none=True)
+    t.loss(t.upload(batch), **_on(kw, t)).backward()
+    return _grads(t.model)
+
+
+def weight_lrs(t) -> dict:
+    """Each named weight's learning rate under trainer ``t``'s optimizer
+    (each of an ``OptimizerGroups``'s)."""
+    opts = getattr(t.optimizer, "optimizers", (t.optimizer,))
+    lr = {id(p): g["lr"] for o in opts for g in o.param_groups
+          for p in g["params"]}
+    return {k: lr[id(v)] for k, v in t.model.named_parameters()
+            if id(v) in lr}
+
+
+def unsigned(g32, g64) -> torch.Tensor:
+    """Where float32 cannot sign a gradient: the float64 one lies within
+    UNSIGNED_RATIO times the float32 one's rounding error of 0."""
+    g64 = g64.double()
+    return g64.abs() < UNSIGNED_RATIO * (g32.double() - g64).abs()
+
+
+def digest(tensors: dict) -> str:
+    """A short hash of named tensors' bytes: equal digests, equal bits."""
+    h = hashlib.blake2b(digest_size=6)
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def synced_step_gap(got: dict, ref: dict, start: dict, lrs: dict, grads,
+                    card_grads=None) -> dict:
+    """One synced step held element by element: ``got`` the card's weights
+    after it, ``ref`` the CPU's, ``start`` the CPU's weights it started
+    from, ``lrs`` each weight's learning rate, ``grads()`` -> (g32, g64)
+    the CPU step's float32 gradient and the float64 one from the same
+    state, called only where an element parts by more than STEP_ATOL;
+    ``card_grads`` (the card's gradients, optional) only name. The
+    noise-walked weights are left out. Returns {"old": the largest
+    relative norm gap of a weight, "gap": the same over the elements not
+    excused, "over": the elements beyond STEP_ATOL, "named": up to
+    NAMED_PER_STEP of them (weight, index, card and CPU updates, gradients,
+    excused), "excused": how many, "faults": what breaks the rule (held gap
+    over COLD_NORM_RTOL, more than STEP_FLIPS of a weight's elements
+    excused (rounded up), an excused element parted by more than 2 * lr)};
+    the step holds where "faults" is empty."""
+    out = {"old": 0.0, "gap": 0.0, "over": 0, "named": [], "excused": 0,
+           "faults": []}
+    parted = {}
+    for name, p in got.items():
+        if noise_walked(name):
+            continue
+        want = ref[name]
+        diff = (p.detach().cpu() - want).abs()
+        rel = float(diff.norm() / want.norm().clamp_min(1e-30))
+        out["old"] = max(out["old"], rel)
+        over = diff > STEP_ATOL
+        if over.any():
+            parted[name] = (diff, over)
+        else:
+            out["gap"] = max(out["gap"], rel)
+    g32, g64 = grads() if parted else ({}, {})
+    for name, (diff, over) in parted.items():
+        want = ref[name]
+        excused = over & unsigned(g32[name], g64[name])
+        kept = ~excused
+        out["gap"] = max(out["gap"], float(
+            diff[kept].norm() / want[kept].norm().clamp_min(1e-30)))
+        n, lr = int(excused.sum()), lrs.get(name, 0.0)
+        out["over"] += int(over.sum())
+        out["excused"] += n
+        if n > math.ceil(STEP_FLIPS * want.numel()):
+            out["faults"].append(f"{name}: {n} of {want.numel()} elements "
+                                 f"excused, over STEP_FLIPS {STEP_FLIPS}")
+        if n and float(diff[excused].max()) > 2 * lr + STEP_ATOL:
+            out["faults"].append(
+                f"{name}: an excused element parted by "
+                f"{float(diff[excused].max()):.3e}, over 2 * lr {2 * lr:g}")
+        for idx in over.nonzero()[:NAMED_PER_STEP - len(out["named"])]:
+            i = tuple(int(x) for x in idx)
+            out["named"].append({
+                "weight": name, "index": i,
+                "card_update": float(got[name][i]) - float(start[name][i]),
+                "cpu_update": float(want[i]) - float(start[name][i]),
+                "card_g": (None if card_grads is None
+                           else float(card_grads[name][i])),
+                "g32": float(g32[name][i]), "g64": float(g64[name][i]),
+                "excused": bool(excused[i])})
+    if out["gap"] > COLD_NORM_RTOL:
+        out["faults"].append(f"held gap {out['gap']:.3e} over "
+                             f"COLD_NORM_RTOL {COLD_NORM_RTOL}")
+    return out
+
+
 def cold_step_parity(device, data, root, model, d=D, bs=4096,
                      steps=STEP_CHECK, seed=0, synced=False, float64=False,
-                     on_done=None):
+                     on_done=None, repeat=False):
     """``steps`` steps of ``model`` on ``device`` and on the CPU from the
     same weights and the model's own batches (DropoutNet: the same rows
     dropped, M2VAE: the same normals, drawn once on the host), in float32
@@ -1513,10 +1653,13 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
     {"free": (loss max rel err, weights max relative norm gap without the
     noise-walked weights, eval tables of the card's final weights and state
     on both devices: max abs err over the table scale), "card_s", "cpu_s"}
-    and, with ``synced``, "synced": (loss max rel err, weights gap) of a
-    third trainer on ``device`` that starts every step from the CPU
-    trainer's state (recorded by the worker), its gap taken after each
-    step."""
+    and, with ``synced``, "synced": one ``synced_step_gap`` a step (with
+    its "loss_err") of a third trainer on ``device`` that starts every
+    step from the CPU trainer's state and takes the CPU step's gradients
+    (both recorded by the worker). With ``repeat`` every synced step runs
+    twice from its state on each device, and each step's entry adds
+    "card_twice" and "cpu_twice" (bit-equal) and the digests "card" and
+    "cpu" of the weights after it."""
     device = torch.device(device)
     cpu_dev = torch.device("cpu")
     devs = (device, cpu_dev) + ((device,) if synced else ())
@@ -1527,7 +1670,8 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
     if float64:
         for t in trainers:
             as_float64(t)
-    card, cpu, held = trainers[0], trainers[1], trainers[2:]
+    card, cpu = trainers[:2]
+    held = trainers[2] if synced else None
     gen = torch.Generator().manual_seed(seed)
     cpu.host_rng = np.random.default_rng(seed)
     work = []
@@ -1563,22 +1707,71 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
     card_params = _params(card.model)
     card_tables = tables(card)
     card_s = time.perf_counter() - t0
-    del card, trainers  # the held trainers alone stay on the card
+    del card, trainers  # the held trainer alone stays on the card
 
     def cpu_side():
-        states, losses = [], []
+        states, losses, grads, twice = [], [], [], []
         for b, kw in work:
             if synced:
                 states.append(snapshot(cpu))
             losses.append(step(cpu, b, kw))
+            if synced and repeat:
+                first = (_params(cpu.model), _grads(cpu.model))
+                load_state(cpu, states[-1])
+                step(cpu, b, kw)
+                again = (_params(cpu.model), _grads(cpu.model))
+                twice.append(all(same(x[k], y[k]) for x, y in
+                                 zip(first, again) for k in x))
+            if synced:
+                grads.append(_grads(cpu.model))
         final = _params(cpu.model)
         if synced:
             states.append(snapshot(cpu))
         cpu.model.load_state_dict(card_state)
-        return losses, final, states, tables(cpu)
+        return losses, final, states, tables(cpu), grads, twice
+
+    def held_steps(states, grads, cpu_losses, cpu_twice) -> list:
+        """Each synced step on the card from the CPU's state, held by
+        ``synced_step_gap``; the float64 gradients on the CPU trainer,
+        turned to float64 at the first step that needs them."""
+        lrs = weight_lrs(held)
+        g64_s = {}
+
+        def at(i):
+            t = time.perf_counter()
+            if next(cpu.model.parameters()).dtype != torch.float64:
+                as_float64(cpu)
+            g64 = step_grads(cpu, states[i][0], *work[i])
+            g64_s[i] = time.perf_counter() - t
+            return grads[i], g64
+
+        out = []
+        for i, (batch, kw) in enumerate(work):
+            load_state(held, states[i])
+            loss = step(held, batch, kw)
+            got = _params(held.model)
+            card_g = {k: v.grad for k, v in held.model.named_parameters()}
+            r = synced_step_gap(got, states[i + 1][0], states[i][0], lrs,
+                                lambda: at(i), card_g)
+            r["loss_err"] = abs(loss - cpu_losses[i]) / abs(cpu_losses[i])
+            r["g64_s"] = g64_s.get(i, 0.0)
+            if repeat:
+                load_state(held, states[i])
+                step(held, batch, kw)
+                again = _params(held.model)
+                r["card_twice"] = all(
+                    same(again[k], v) for k, v in got.items()) and all(
+                    same(v.grad, card_g[k])
+                    for k, v in held.model.named_parameters()
+                    if card_g[k] is not None)
+                r["cpu_twice"] = cpu_twice[i]
+                r["card"], r["cpu"] = digest(got), digest(
+                    {k: states[i + 1][0][k] for k in got})
+            out.append(r)
+        return out
 
     def finish(out, cpu_s):
-        cpu_losses, final, states, cpu_tables = out
+        cpu_losses, final, states, cpu_tables, grads, twice = out
         a, b = np.asarray(card_losses), np.asarray(cpu_losses)
         table_err = max(float((x - y).abs().max() / y.abs().max())
                         for x, y in zip(card_tables, cpu_tables))
@@ -1587,16 +1780,7 @@ def cold_step_parity(device, data, root, model, d=D, bs=4096,
                "card_s": card_s, "cpu_s": cpu_s}
         if synced:
             t1 = time.perf_counter()
-            err, gap = 0.0, 0.0
-            for i, (batch, kw) in enumerate(work):
-                for t in held:
-                    load_state(t, states[i])
-                    loss = step(t, batch, kw)
-                    err = max(err, abs(loss - cpu_losses[i])
-                              / abs(cpu_losses[i]))
-                    gap = max(gap, _weights_gap(
-                        dict(t.model.named_parameters()), states[i + 1][0]))
-            res["synced"] = (err, gap)
+            res["synced"] = held_steps(states, grads, cpu_losses, twice)
             res["card_s"] += time.perf_counter() - t1
         on_done(res)
 
@@ -1880,15 +2064,18 @@ def check_knn_calls(model, calls, device) -> None:
         raise AssertionError(f"{model}: content searches {calls}")
 
 
-def hold_cold_steps(device, data, root, model, d, bs, steps, seed) -> None:
+def hold_cold_steps(device, data, root, model, d, bs, steps, seed,
+                    repeat=False) -> list:
     """``cold_step_parity`` of ``model``, logged and held at its finish:
     losses within STEP_LOSS_RTOL, weights within COLD_NORM_RTOL in relative
     norm, the eval tables of one set of weights within STEP_LOSS_RTOL. A
     model of SYNCED_STEPS is held on its float32 steps from the CPU's state
-    (loss and weights) and on its free run in float64 (the whole rule); its
-    float32 free run is logged."""
+    (loss and weights, element by element: ``synced_step_gap``) and on its
+    free run in float64 (the whole rule); its float32 free run is logged.
+    Returns the list that its finish fills with the synced steps' entries
+    (``repeat``: each step run twice on each device)."""
     synced = model in SYNCED_STEPS
-    results = {}
+    results, entries = {}, []
 
     def text(loss_err, gap, table_err):
         return (f"loss max rel err {loss_err:.3e}, weights max relative "
@@ -1902,28 +2089,101 @@ def hold_cold_steps(device, data, root, model, d, bs, steps, seed) -> None:
         r = results["f32"]
         held = [r["free"]]
         line = f"{text(*r['free'])}"
+        faults = []
         if synced:
             r64 = results["f64"]
-            held = [(*r["synced"], r["free"][2]), r64["free"]]
-            line += (f"; each float32 step from the CPU's state: loss max "
-                     f"rel err {r['synced'][0]:.3e}, weights gap "
-                     f"{r['synced'][1]:.3e}; free-running in float64: "
+            entries.extend(r["synced"])
+            s = synced_summary(r["synced"])
+            held = [(s["loss_err"], s["gap"], r["free"][2]), r64["free"]]
+            faults = s["faults"]
+            line += (f"; each float32 step from the CPU's state: "
+                     f"{s['text']}; free-running in float64: "
                      f"{text(*r64['free'])}")
         dev = torch.device(device).type
         sides = "; ".join(f"{k}: {dev} side {v['card_s']:.2f} s, cpu side "
                           f"{v['cpu_s']:.2f} s" for k, v in results.items())
         log(f"  {model}: {steps} steps {dev} vs cpu ({sides}): {line}")
         for loss_err, gap, table_err in held:
-            if not (loss_err <= STEP_LOSS_RTOL and gap <= COLD_NORM_RTOL
-                    and table_err <= STEP_LOSS_RTOL):
+            if faults or not (loss_err <= STEP_LOSS_RTOL
+                              and gap <= COLD_NORM_RTOL
+                              and table_err <= STEP_LOSS_RTOL):
                 raise AssertionError(f"{model}: the card's steps disagree "
-                                     "with the CPU's")
+                                     f"with the CPU's {faults}")
 
     cold_step_parity(device, data, root, model, d, bs, steps, seed, synced,
-                     on_done=lambda r: done("f32", r))
+                     on_done=lambda r: done("f32", r), repeat=repeat)
     if synced:
         cold_step_parity(device, data, root, model, d, bs, steps, seed,
                          float64=True, on_done=lambda r: done("f64", r))
+    return entries
+
+
+def synced_summary(steps: list) -> dict:
+    """The synced steps' entries (``synced_step_gap``) summed up: the
+    largest loss error, single-norm gap and held gap, the faults, and a log
+    text naming every element beyond STEP_ATOL that a step's entry holds
+    (its card and CPU updates, gradients, and whether it was excused)."""
+    s = {"loss_err": max(r["loss_err"] for r in steps),
+         "old": max(r["old"] for r in steps),
+         "gap": max(r["gap"] for r in steps),
+         "faults": [f"step {i}: {f}" for i, r in enumerate(steps)
+                    for f in r["faults"]]}
+    named = "; ".join(
+        f"step {i} {e['weight']}{list(e['index'])} "
+        f"{'excused' if e['excused'] else 'held'}: update card "
+        f"{e['card_update']:+.3e} cpu {e['cpu_update']:+.3e}, g card "
+        f"{e['card_g']:+.3e} g32 {e['g32']:+.3e} g64 {e['g64']:+.3e}"
+        for i, r in enumerate(steps) for e in r["named"])
+    over = sum(r["over"] for r in steps)
+    s["text"] = (
+        f"loss max rel err {s['loss_err']:.3e}, weights gap "
+        f"{s['old']:.3e} (one norm a weight), held gap {s['gap']:.3e} "
+        f"(excused elements out); {over} elements beyond {STEP_ATOL} in "
+        f"{sum(1 for r in steps if r['over'])} of {len(steps)} steps "
+        f"(float64 gradients {sum(r['g64_s'] for r in steps):.2f} s), "
+        f"{sum(r['excused'] for r in steps)} excused"
+        + (f": {named}" if named else ""))
+    return s
+
+
+def synced_repeats(model="VBPR", repeats=5, device="cuda", shape=BX,
+                   d=D, bs=4096, steps=STEP_CHECK, seed=0) -> int:
+    """``model``'s synced check (``hold_cold_steps``) ``repeats`` times in
+    this process on phase train's split and MF bus at ``shape``, every
+    synced step run twice from its state on each device: per repeat, each
+    step's bit-equality on both sides, the digests of both sides' weights
+    after it, and the rule's line. Returns the number of repeats that
+    failed. On the card:
+    ``python3 -c "import sys, chip_smoke as cs; sys.exit(cs.synced_repeats())"``
+    """
+    device = torch.device(device)
+    log(f"  {smi_line() if device.type == 'cuda' else 'cpu'}; host "
+        f"{cpu_line()}")
+    CHECKS.start()
+    failed = 0
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            train_run(device, *shape, d=d, bs=bs, root=root,
+                      content_dim=BX_CONTENT)
+            CHECKS.poll(wait=True)
+            data = read_split(root, "bx_synth")
+            for rep in range(repeats):
+                out = hold_cold_steps(device, data, root, model, d, bs,
+                                      steps, seed, repeat=True)
+                try:
+                    CHECKS.poll(wait=True)
+                except AssertionError as e:
+                    failed += 1
+                    log(f"  repeat {rep}: FAILED {e}")
+                log(f"  repeat {rep}: both sides twice bit-equal at every "
+                    f"step: card {all(r['card_twice'] for r in out)}, cpu "
+                    f"{all(r['cpu_twice'] for r in out)}; digests card "
+                    f"{[r['card'] for r in out]} cpu "
+                    f"{[r['cpu'] for r in out]}")
+    finally:
+        CHECKS.close()
+    log(f"{model}: {repeats - failed} of {repeats} repeats passed")
+    return failed
 
 
 # ----------------------------------------------- the reconstruction models
